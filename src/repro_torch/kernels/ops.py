@@ -1,0 +1,61 @@
+"""Dispatch points of the search's two kernels.
+
+The rule is the tensor's own device and nothing else: a tensor on the CPU
+goes to the kernel's plain PyTorch version (``kernels.ref``), a tensor on a
+CUDA device goes to the hand-written kernel, which launches or raises —
+there is no fallback. ``plain_versions()`` is the one explicit override: a
+context inside which CUDA tensors too go to the plain versions, so a whole
+search can be run both ways on the card and compared.
+
+Call sites (``core/gscpm.py``, ``core/hex.py``) go through these wrappers
+only.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from repro_torch.kernels import hex_winner as _hw
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import uct_select as _us
+
+_force_plain = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside this context every dispatch takes the plain PyTorch version,
+    whatever the device (comparison runs only; the default is the kernel)."""
+    global _force_plain
+    prev, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = prev
+
+
+def uct_select(wins, visits, vloss, parent_total, valid, cp,
+               noise=None, lane_mask=None):
+    """Batched UCT child selection — the search hot path's dispatch point.
+
+    (W, C) child stats -> (W,) int32 slots. ``cp`` is a run-time value on
+    both paths: sweeping it compiles nothing.
+    """
+    if wins.is_cuda and not _force_plain:
+        return _us.uct_select(wins, visits, vloss, parent_total, valid, cp,
+                              noise=noise, lane_mask=lane_mask)
+    return _ref.uct_select(wins, visits, vloss, parent_total, valid, cp,
+                           noise=noise, lane_mask=lane_mask)
+
+
+def hex_winner(boards, size: int):
+    """Batched Hex winner evaluation — the playout phase's dispatch point.
+
+    boards: (W, size*size) FILLED boards; returns (W,) int8 winners. On
+    the card this is always the pointer-doubling kernel; the batched flood
+    fill (``core.hex.winner_flood_batch``) is an independent oracle, not a
+    dispatch target.
+    """
+    if boards.is_cuda and not _force_plain:
+        return _hw.hex_winner(boards, size)
+    return _ref.hex_winner(boards, size)
