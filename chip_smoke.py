@@ -7,17 +7,24 @@ Run from the root of a checkout, with no arguments:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc``, holds each against its plain PyTorch version on the card,
-drives the port's main path — one full-width GSCPM Hex search (11x11, 256
-lanes, the paper's 1,048,576 playouts) through
-``repro_torch.core.gscpm.gscpm_search`` — and checks the result, including
-that the same search run twice (at 65,536 playouts) gives bit-identical
-trees. Each phase prints one JSON line; any failed check ends the run with a
+and drives the port's two paths:
+
+- one full-width GSCPM Hex search (11x11, 256 lanes, the paper's 1,048,576
+  playouts) through ``repro_torch.core.gscpm.gscpm_search``, checking among
+  other things that the same search run twice (at 65,536 playouts) gives
+  bit-identical trees;
+- GSCPM-guided decoding on SmolLM-135M at its published width (random
+  weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 4
+  tokens after a 128-token prompt, 1,024 playouts on 64 lanes per token,
+  run twice with bit-identical tokens and trees.
+
+Each phase prints one JSON line; any failed check ends the run with a
 non-zero exit code. Without a GPU it exits non-zero and prints no result.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit; the line before that is the
 ``{"kernels": [...]}`` record with every kernel's time, bound and launches
-on the main path.
+on its path (each path's counters are zeroed just before it runs).
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # is the 67 T/s float32 figure.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# the same sheet's dense bf16 tensor-core rate: the rate for attention's
+# products on bf16 inputs
+BF16_TENSOR_OPS_PER_S = 989e12
 
 # the paper's configuration: 11x11 Hex, 256 lanes, 1024 tasks, fifo, Cp = 1
 FULL = dict(board_size=11, n_workers=256, n_tasks=1024, tree_cap=1 << 18,
@@ -46,6 +56,26 @@ FULL = dict(board_size=11, n_workers=256, n_tasks=1024, tree_cap=1 << 18,
 # run (`--playouts 65536`) for when the time limit is short
 PAPER_PLAYOUTS = 1_048_576
 SHORT_PLAYOUTS = 65_536
+
+# the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
+# 4 generated tokens, each from a GSCPM search of 1,024 playouts on 64 lanes
+LM_PROMPT_LEN = 128
+LM_TOKENS = 4
+LM_PLAYOUTS = 1024
+LM_SEARCH = dict(n_workers=64, n_tasks=64, branch=8, max_depth=6,
+                 rollout_len=8, tree_cap=4096)
+LM_PREFILL_SHAPE = (64, 9, 3, LM_PROMPT_LEN, 64)   # B, H, Hkv, S, d
+LM_DECODE_NORM_SHAPE = (64, 576)                  # W rows of d_model
+# kernel vs plain version on the card: the tolerances of the JAX package's
+# own kernel tests (tests/test_kernels.py) for attention; for the norm, one
+# float32 rounding of the statistics, or one bf16 step of the output
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.5e-2}
+RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# root logits of the full-width bf16 model, kernels vs plain versions: both
+# round the same values to bf16 in 61 norms and 30 attentions, where a
+# one-ulp difference (2**-8 relative) can flip; allowed: 5 % of the largest
+# logit
+LOGITS_TOL = 0.05
 
 
 def emit(phase: str, **fields) -> None:
@@ -144,8 +174,25 @@ def phase_rng(torch) -> None:
     ties[:, 40:] = 3.0
     check((torch.argmax(ties, dim=-1) == 40).all(),
           "torch.argmax on the card does not return the first maximum")
+    # and at the LM path's (lanes, vocab) rows: argmax, and the stable sort
+    # that gives lax.top_k's order of tied logits
+    from repro_torch.serve.mcts_decode import top_k_tokens
+    vocab_ties = torch.zeros((64, 49_152), device="cuda")
+    vocab_ties[:, 1000::7] = 2.0
+    check((torch.argmax(vocab_ties, dim=-1) == 1000).all(),
+          "torch.argmax on (64, 49152) does not return the first maximum")
+    check((top_k_tokens(vocab_ties, 8)
+           == torch.arange(1000, 1056, 7, device="cuda")).all(),
+          "top_k_tokens on the card does not order ties by token id")
+    g_card = rng.gumbel(rng.split(rng.key(3, "cuda"), 64), 49_152).cpu()
+    g_cpu = rng.gumbel(rng.split(rng.key(3, "cpu"), 64), 49_152)
+    gumbel_err = float((g_card - g_cpu).abs().max())
+    check(gumbel_err < 1e-5,
+          f"gumbel (64, 49152): card and CPU part by {gumbel_err}, more "
+          "than log's rounding")
     emit("rng", ok=True, pinned=["fold_in", "split", "uniform"],
-         card_equals_cpu=True, argmax_first_index=True)
+         card_equals_cpu=True, argmax_first_index=True,
+         top_k_ties_by_token_id=True, gumbel_card_vs_cpu_max_abs=gumbel_err)
 
 
 # ----------------------------------------------------------------- kernels ----
@@ -478,13 +525,375 @@ def phase_sequential(torch, n_playouts: int):
     return st["playouts_per_s"]
 
 
+# -------------------------------------------------------------- LM kernels ----
+def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
+    """(bound in ms, what bounds it) for `n_bytes` moved and `n_ops` done."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+
+
+def check_flash(torch):
+    """The flash kernel against its plain version on the card: the prefill
+    shape, GQA, MQA, head dims 64/80/128, causal or not, float32 and
+    bfloat16, sequence lengths off the tile size, and the model's strided
+    (B, S, H, d) layout through ops."""
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+    cases = [  # B, H, Hkv, S, d
+        (64, 9, 3, 128, 64), (2, 4, 2, 128, 64), (1, 8, 1, 128, 128),
+        (2, 2, 2, 128, 80), (2, 4, 2, 129, 64), (3, 6, 2, 200, 64),
+        (1, 2, 1, 1, 64), (2, 4, 4, 37, 32)]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for i, (B, H, Hkv, S, d) in enumerate(cases):
+        for dt in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                g = torch.Generator(device="cuda").manual_seed(i)
+                r = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dt)
+                q, k, v = r(B, H, S, d), r(B, Hkv, S, d), r(B, Hkv, S, d)
+                got = fa.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention(q, k, v, causal=causal)
+                # the model's layout: strided views in, (B, S, H, d) out
+                got_bshd = ops.flash_attention(
+                    *(t.transpose(1, 2) for t in (q, k, v)), causal=causal)
+                torch.cuda.synchronize()
+                name = "float32" if dt == torch.float32 else "bfloat16"
+                tol = FLASH_TOL[name]
+                err = float((got.float() - want.float()).abs().max())
+                check(got.dtype == dt and got.shape == q.shape,
+                      "flash_attention: wrong output type or shape")
+                check(torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol),
+                      f"flash_attention {(B, H, Hkv, S, d)} {name} causal="
+                      f"{causal}: max abs err {err} above {tol}")
+                check(torch.equal(got_bshd.transpose(1, 2), got),
+                      "flash_attention: the strided bshd call differs")
+                worst[name] = max(worst[name], err)
+                n += 1
+    return {"cases": n, "tolerance": FLASH_TOL, "max_abs_err": worst}
+
+
+def check_rmsnorm(torch):
+    """The rmsnorm kernel against its plain version on the card, both
+    rounding orders, D = 576, 1024 and an odd D, float32 and bfloat16."""
+    from repro_torch.kernels import ref, rmsnorm as rn
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for D in (576, 1024, 577):
+        for N in (64, 64 * 128, 7):
+            for dt in (torch.float32, torch.bfloat16):
+                for wdt in (torch.float32, torch.bfloat16):
+                    for order in ("kernel", "model"):
+                        g = torch.Generator(device="cuda").manual_seed(D + N)
+                        x = (3 * torch.randn(N, D, generator=g,
+                                             device="cuda")).to(dt)
+                        w = (1 + 0.1 * torch.randn(D, generator=g,
+                                                   device="cuda")).to(wdt)
+                        got = rn.rmsnorm(x, w, 1e-5, order=order)
+                        want = ref.rmsnorm(x, w, 1e-5, order=order)
+                        torch.cuda.synchronize()
+                        name = "float32" if dt == torch.float32 else "bfloat16"
+                        tol = RMSNORM_TOL[name]
+                        err = float((got.float() - want.float()).abs().max())
+                        check(got.dtype == dt and got.shape == x.shape,
+                              "rmsnorm: wrong output type or shape")
+                        check(torch.allclose(got.float(), want.float(),
+                                             atol=tol, rtol=tol),
+                              f"rmsnorm D={D} N={N} {name} w {wdt} order="
+                              f"{order}: max abs err {err} above {tol}")
+                        worst[name] = max(worst[name], err)
+                        n += 1
+    return {"cases": n, "tolerance": RMSNORM_TOL, "max_abs_err": worst}
+
+
+def phase_lm_kernels(torch):
+    """Hold the two LM kernels against their plain versions on the card,
+    then time them at the shapes the LM path gives them: flash attention at
+    the prefill (64 lanes, 9 heads over 3 KV heads, 128 tokens, d=64, bf16,
+    the model's strided layout), rmsnorm at the decode step (64 x 576 bf16,
+    the model's rounding order)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    flash = check_flash(torch)
+    norm = check_rmsnorm(torch)
+
+    B, H, Hkv, S, d = LM_PREFILL_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    q = torch.randn(B, S, H, d, generator=g, device="cuda").to(bf)
+    k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
+    v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
+    fa_call = lambda: ops.flash_attention(q, k, v, causal=True)
+    fa_ms, fa_graph = time_ms(fa_call), graph_ms(fa_call)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    fa_plain = time_ms(lambda: ref.flash_attention(qh, kh, vh, causal=True),
+                       iters=20, warmup=3)
+    qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+    fa_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True))
+    lib_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                             enable_gqa=True)
+    fa_lib_err = float((lib_out.transpose(1, 2).float()
+                        - fa_call().float()).abs().max())
+    # each input read once, the output written once; the causal pairs only
+    fa_bytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+    fa_ops = 4 * B * H * (S * (S + 1) // 2) * d
+    fa_bound, fa_by = bound_ms(fa_bytes, fa_ops, BF16_TENSOR_OPS_PER_S)
+
+    N, D = LM_DECODE_NORM_SHAPE
+    x = torch.randn(N, 1, D, generator=g, device="cuda").to(bf)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+    rn_call = lambda: ops.rmsnorm(x, w, 1e-5, order="model")
+    rn_ms, rn_graph = time_ms(rn_call), graph_ms(rn_call)
+    rn_plain = time_ms(lambda: ref.rmsnorm(x, w, 1e-5, order="model"))
+    rn_lib = time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5))
+    rn_bytes = 2 * (2 * N * D + D)
+    rn_ops = 4 * N * D            # square, add, scale, weight per element
+    rn_bound, rn_by = bound_ms(rn_bytes, rn_ops, OPS_PER_S)
+    # the prefill's norm shape, for the record
+    xp = torch.randn(B, S, D, generator=g, device="cuda").to(bf)
+    rn_prefill_ms = graph_ms(lambda: ops.rmsnorm(xp, w, 1e-5, order="model"))
+
+    records = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:38",
+         "shape": [B, H, Hkv, S, d], "dtype": "bfloat16", "layout": "bshd",
+         "checked": flash, "max_abs_err": flash["max_abs_err"]["bfloat16"],
+         "ms": fa_ms, "in_graph_ms": fa_graph, "plain_ms": fa_plain,
+         "bound_ms": fa_bound, "bound_by": fa_by, "library_ms": fa_lib,
+         "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                         "(is_causal=True, enable_gqa=True)",
+         "library_max_abs_diff": fa_lib_err},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:19",
+         "shape": [N, 1, D], "dtype": "bfloat16", "order": "model",
+         "checked": norm, "max_abs_err": norm["max_abs_err"]["bfloat16"],
+         "ms": rn_ms, "in_graph_ms": rn_graph, "plain_ms": rn_plain,
+         "bound_ms": rn_bound, "bound_by": rn_by, "library_ms": rn_lib,
+         "library_call": "torch.nn.functional.rms_norm",
+         "prefill_shape": [B, S, D], "prefill_in_graph_ms": rn_prefill_ms},
+    ]
+    emit("lm_kernels", flash_attention=flash, rmsnorm=norm,
+         timed={r["name"]: {k: r[k] for k in ("ms", "in_graph_ms", "plain_ms",
+                                                "bound_ms", "bound_by",
+                                                "library_ms")}
+                for r in records})
+    return records
+
+
+# --------------------------------------------------------------- LM search ----
+def lm_path_counters():
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    from repro_torch.kernels import uct_select as us
+    return {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
+            "uct_select": us.uct_select}
+
+
+def profile_one_lm_iteration(torch, params, mcfg, dcfg, prompt, key):
+    """CUDA kernels launched, and device-busy ms, in ONE sync iteration of
+    the LM search (after a prefill), by torch.profiler; (None, None) if the
+    profiler saw no device activity."""
+    from repro_torch import rng
+    from repro_torch.core.gscpm import fold_task_keys
+    from repro_torch.core.tree import init_tree
+    from repro_torch.models import api
+    from repro_torch.serve import mcts_decode as md
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    W = dcfg.n_workers
+    P = prompt.shape[0]
+    max_len = P + dcfg.max_depth + dcfg.rollout_len + 1
+    logits, cache = api.prefill(params, mcfg,
+                                {"tokens": prompt[None, :].repeat(W, 1)},
+                                max_len)
+    root = logits[0, 0].float()
+    tree = init_tree(dcfg.tree_cap, dcfg.branch, 1, device="cuda")
+    keys = fold_task_keys(key, torch.arange(W, dtype=torch.int32,
+                                            device="cuda"))
+    active = torch.ones(W, dtype=torch.bool, device="cuda")
+    # a few iterations first, so the profiled one descends a real tree
+    for i in range(4):
+        md._iteration(tree, params, mcfg, dcfg, cache, root, P, dcfg.cp,
+                      rng.fold_in(keys, i), active)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        md._iteration(tree, params, mcfg, dcfg, cache, root, P, dcfg.cp,
+                      rng.fold_in(keys, 4), active)
+        torch.cuda.synchronize()
+    kernels, device_us = 0, 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith(
+                ("Memcpy", "Memset")):
+            kernels += 1
+            device_us += float(getattr(ev, "device_time", 0.0) or 0.0)
+    return (kernels or None), (device_us / 1e3 if kernels else None)
+
+
+def check_root_logits(torch, params, mcfg, prompt, W):
+    """Prefill with the kernels and with their plain versions on the same
+    card: the root logits agree within LOGITS_TOL (relative to the largest
+    logit), and so does the set of the top-`branch` tokens a search would
+    propose at the root, wherever the plain logits leave a margin larger
+    than the error at the set's boundary."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serve.mcts_decode import top_k_tokens
+    tokens = {"tokens": prompt[None, :].repeat(W, 1)}
+    max_len = prompt.shape[0] + 1
+    kern, _ = api.prefill(params, mcfg, tokens, max_len)
+    with ops.plain_versions():
+        plain, _ = api.prefill(params, mcfg, tokens, max_len)
+    kern, plain = kern[0, 0].float(), plain[0, 0].float()
+    err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    check(err <= LOGITS_TOL * scale,
+          f"root logits: kernels vs plain max abs err {err} above "
+          f"{LOGITS_TOL} x {scale}")
+    k = LM_SEARCH["branch"]
+    top_k, top_p = top_k_tokens(kern, k), top_k_tokens(plain, k)
+    kth = plain[top_p[-1].long()]
+    # tokens whose plain logit is clear of the boundary must agree
+    clear = set(torch.nonzero(plain > kth + 2 * err).flatten().tolist())
+    check(clear <= set(top_k.tolist()),
+          "root top-k: a token clearly inside the plain top-k is missing")
+    sure_out = plain < kth - 2 * err
+    check(not bool(sure_out[top_k.long()].any()),
+          "root top-k: a token clearly outside the plain top-k was chosen")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "tolerance": f"{LOGITS_TOL} x max |logit|",
+            "top_k_equal": top_k.tolist() == top_p.tolist(),
+            "top_k_kernels": top_k.tolist(), "top_k_plain": top_p.tolist()}
+
+
+def phase_lm_search(torch, n_playouts: int, n_tokens: int):
+    """SmolLM-135M at its published width (30 layers, d=576, 9 heads over 3
+    KV heads, vocab 49,152, bf16, flash prefill), random weights from seed
+    0: `mcts_generate` of `n_tokens` tokens after a 128-token prompt, run
+    twice (tokens and every search's tree bit-identical), with launch
+    counters, invariants, timings, a profiled iteration and the
+    kernels-vs-plain check of the root logits."""
+    from repro_torch import parity, rng
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import check_invariants
+    from repro_torch.models import api
+    from repro_torch.serve.mcts_decode import MCTSDecodeConfig, mcts_generate
+    mcfg = get_config("smollm-135m").replace(use_flash=True)
+    t_init = time.perf_counter()
+    params = api.init_params(mcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, mcfg.vocab, (LM_PROMPT_LEN,), generator=g,
+                           device="cuda", dtype=torch.int32)
+    dcfg = MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts": n_playouts})
+    key = rng.key(0, "cuda")
+
+    # warm the allocator, cuBLAS and the kernels on a short search
+    mcts_generate(params, mcfg, prompt, 1,
+                  MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts": 64}), key)
+
+    counters = lm_path_counters()
+    for c in counters.values():
+        c.launches = 0   # the LM path's counts: zeroed just before
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks_a, st_a = mcts_generate(params, mcfg, prompt, n_tokens, dcfg, key,
+                                 keep_trees=True)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    toks_b, st_b = mcts_generate(params, mcfg, prompt, n_tokens, dcfg, key,
+                                 keep_trees=True)
+    check(torch.equal(toks_a, toks_b), "LM search: tokens differ run to run")
+    for a, b in zip(st_a, st_b):
+        fields = parity.differing_fields(a["tree"], b["tree"])
+        check(fields == [], f"LM search: trees differ run to run in {fields}")
+    new = toks_a[LM_PROMPT_LEN:]
+    check(new.shape == (n_tokens,) and bool(((new >= 0)
+                                            & (new < mcfg.vocab)).all()),
+          f"LM search: generated tokens out of range: {new.tolist()}")
+    iters = sum(s["sync_iterations"] for s in st_a)
+    for i, s in enumerate(st_a):
+        t = s["tree"]
+        check_invariants(t, discrete_credits=False)
+        check(float(t.visits[0]) == s["playouts"] == n_playouts,
+              f"LM search: root visits {float(t.visits[0])} != playouts")
+        check(bool(torch.isfinite(t.wins).all()), "LM search: non-finite wins")
+        check(s["best_token"] == int(toks_a[LM_PROMPT_LEN + i]),
+              "LM search: committed token is not the best root child")
+    L = mcfg.n_layers
+    steps = iters * (dcfg.max_depth + dcfg.rollout_len)
+    check(launches["flash_attention"] == n_tokens * L,
+          f"flash_attention launches {launches['flash_attention']} != "
+          f"{n_tokens} prefills x {L} layers")
+    check(launches["rmsnorm"] == (2 * L + 1) * (n_tokens + steps),
+          f"rmsnorm launches {launches['rmsnorm']} != 61 x (prefills + "
+          f"decode steps)")
+    check(launches["uct_select"] > 0, "uct_select never launched on the LM path")
+
+    # one decode step on its own, at the search's shape
+    W = dcfg.n_workers
+    max_len = LM_PROMPT_LEN + dcfg.max_depth + dcfg.rollout_len + 1
+    _, cache = api.prefill(params, mcfg,
+                           {"tokens": prompt[None, :].repeat(W, 1)}, max_len)
+    tok = prompt[:W].reshape(W, 1)
+    step = lambda: api.decode(params, mcfg, tok, LM_PROMPT_LEN, cache)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t1) * 100
+    del cache
+
+    n_kernels, dev_ms = profile_one_lm_iteration(torch, params, mcfg, dcfg,
+                                                 prompt, key)
+    logits = check_root_logits(torch, params, mcfg, prompt, W)
+    search_s = sum(s["time_s"] for s in st_a)
+    prefill_s = [s["prefill_s"] for s in st_a]
+    emit("lm_search",
+         config={"model": "smollm-135m", "n_params": api.n_params(mcfg),
+                 "use_flash": True, "prompt_len": LM_PROMPT_LEN,
+                 "n_tokens": n_tokens, **LM_SEARCH, "n_playouts": n_playouts,
+                 "weights": "random, seed 0"},
+         tokens=new.tolist(), run_twice_bit_identical=True,
+         seconds_generate=wall_a, seconds_search=search_s,
+         init_params_s=init_s,
+         prefill_ms=[1e3 * p for p in prefill_s],
+         sync_iterations=iters,
+         ms_per_sync_iteration=1e3 * search_s / iters,
+         ms_per_decode_step=decode_ms,
+         playouts_per_s=n_tokens * n_playouts / search_s,
+         tokens_per_s=n_tokens / wall_a,
+         tree_nodes=[s["tree_nodes"] for s in st_a],
+         launches=launches,
+         mean_descent_levels=launches["uct_select"] / iters,
+         cuda_kernels_in_one_iteration=n_kernels,
+         device_ms_in_one_iteration=dev_ms,
+         peak_memory_mb=peak_mb, root_logits_kernels_vs_plain=logits)
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
                    help="budget of the full-width search")
     p.add_argument("--sequential-playouts", type=int, default=2048)
+    p.add_argument("--lm-playouts", type=int, default=LM_PLAYOUTS,
+                   help="budget of each search of the LM path")
+    p.add_argument("--lm-tokens", type=int, default=LM_TOKENS,
+                   help="tokens the LM path generates")
     p.add_argument("--only-kernels", action="store_true",
                    help="stop after the build and the kernel checks")
+    p.add_argument("--only-lm", action="store_true",
+                   help="run the LM kernels and the LM path only (a quick "
+                        "check while working on them; prints no result)")
     args = p.parse_args(argv)
 
     import torch
@@ -498,8 +907,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smi = phase_env(torch)
     phase_build()
+    if args.only_lm:
+        phase_lm_kernels(torch)
+        phase_lm_search(torch, args.lm_playouts, args.lm_tokens)
+        emit("summary", seconds=round(time.perf_counter() - t0, 1))
+        return 0
     phase_rng(torch)
-    records = phase_kernels(torch)
+    records = phase_kernels(torch) + phase_lm_kernels(torch)
     if args.only_kernels:
         for r in records:
             r["launches"] = 0
@@ -507,8 +921,14 @@ def main(argv=None) -> int:
         return 0
     launches, rate = phase_search(torch, args.playouts)
     seq_rate = phase_sequential(torch, args.sequential_playouts)
+    lm_launches = phase_lm_search(torch, args.lm_playouts, args.lm_tokens)
     for r in records:
-        r["launches"] = launches[r["name"]]
+        # each kernel's count from its own path: the Hex search for
+        # uct_select and hex_winner, the LM search for the LM kernels
+        r["launches"] = launches.get(r["name"], lm_launches.get(r["name"]))
+        r["launches_by_path"] = {
+            "hex_search": launches.get(r["name"], 0),
+            "lm_search": lm_launches.get(r["name"], 0)}
     emit("summary", seconds=round(time.perf_counter() - t0, 1),
          search_playouts_per_s=rate, sequential_playouts_per_s=seq_rate)
     print(json.dumps({"kernels": records}), flush=True)

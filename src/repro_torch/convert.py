@@ -15,6 +15,9 @@ import torch
 
 from repro_torch.core.gscpm import GSCPMConfig
 from repro_torch.core.tree import Tree
+from repro_torch.models import api
+from repro_torch.models.common import ModelConfig, tree_leaves, tree_set
+from repro_torch.models.transformer import TransformerLM
 
 _TREE_DTYPES = {
     "parent": torch.int32, "move": torch.int32, "to_move": torch.int32,
@@ -61,3 +64,38 @@ def config_from_dict(d: dict) -> GSCPMConfig:
     if unknown:
         raise KeyError(f"config_from_dict: unknown fields {sorted(unknown)}")
     return GSCPMConfig(**d)
+
+
+def model_config_from_dict(d: dict) -> ModelConfig:
+    """A ``ModelConfig`` from ``dataclasses.asdict`` of either package's
+    config (the two have the same fields); unknown keys are refused."""
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise KeyError(f"model_config_from_dict: unknown fields {sorted(unknown)}")
+    return ModelConfig(**d)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> TransformerLM:
+    """A ``TransformerLM`` from the JAX package's parameter tree given as
+    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    Every leaf the config's spec tree has must be there, with its shape;
+    nothing else may be. Arrays are copied and cast to ``cfg.param_dtype``
+    (a bfloat16 array crosses as float32 first, which is exact)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    want = api.param_shapes(cfg)
+    got = dict(tree_leaves(tree))
+    missing, unknown = set(want) - set(got), set(got) - set(want)
+    if missing or unknown:
+        raise KeyError(f"params_from_numpy: missing {sorted(missing)}, "
+                       f"unknown {sorted(unknown)}")
+    out: dict = {}
+    for path, arr in got.items():
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(want[path]):
+            raise ValueError(f"params_from_numpy: {path} has shape "
+                             f"{arr.shape}, expected {want[path]}")
+        tree_set(out, path, torch.tensor(arr.astype(np.float32),
+                                         dtype=cfg.pdtype, device=device))
+    return TransformerLM(cfg, out)

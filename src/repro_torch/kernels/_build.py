@@ -28,18 +28,26 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
-# no --use_fast_math, and no fused multiply-add: uct_select's scores must
-# round exactly as the plain PyTorch version's separate ops do
+# no --use_fast_math, and no contracted multiply-add: uct_select's scores
+# must round exactly as the plain PyTorch version's separate ops do. The
+# attention and norm kernels ask for a fused multiply-add where they want
+# one, with an explicit fmaf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     # wins, visits, vloss, parent_total, valid, noise, lane_mask, cp, W, C,
     # out, stream
     "repro_uct_select": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P),
     # boards, W, size, rounds, out, stream
     "repro_hex_winner": (_P, _I, _I, _I, _P, _P),
+    # q, k, v, o, B, H, Hkv, S, D, scale, causal, dtype, then the (batch,
+    # head, seq) element strides of q, k, v and o, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                              *(_L,) * 12, _P),
+    # x, w, out, N, D, eps, x_dtype, w_dtype, order, stream
+    "repro_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,4 +1,4 @@
-"""Dispatch points of the search's two kernels.
+"""Dispatch points of the port's kernels.
 
 The rule is the tensor's own device and nothing else: a tensor on the CPU
 goes to the kernel's plain PyTorch version (``kernels.ref``), a tensor on a
@@ -7,7 +7,8 @@ there is no fallback. ``plain_versions()`` is the one explicit override: a
 context inside which CUDA tensors too go to the plain versions, so a whole
 search can be run both ways on the card and compared.
 
-Call sites (``core/gscpm.py``, ``core/hex.py``) go through these wrappers
+Call sites (``core/gscpm.py``, ``core/hex.py``, ``models/attention.py``,
+``models/layers.py``, ``serve/mcts_decode.py``) go through these wrappers
 only.
 """
 
@@ -15,8 +16,12 @@ from __future__ import annotations
 
 import contextlib
 
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hex_winner as _hw
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import uct_select as _us
 
 _force_plain = False
@@ -59,3 +64,34 @@ def hex_winner(boards, size: int):
     if boards.is_cuda and not _force_plain:
         return _hw.hex_winner(boards, size)
     return _ref.hex_winner(boards, size)
+
+
+def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
+                    layout: str = "bshd"):
+    """Flash attention. layout ``"bshd"`` (the models': q (B, S, H, d), k/v
+    (B, S, Hkv, d)) or ``"bhsd"`` (the kernel's own). On the card the
+    ``bshd`` tensors are handed to the kernel as strided views and its
+    output is written straight into a (B, S, H, d) buffer: no copies."""
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError(f"flash_attention: unknown layout {layout!r}")
+    bshd = layout == "bshd"
+    if bshd:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if q.is_cuda and not _force_plain:
+        if not bshd:
+            return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+        B, H, S, d = q.shape
+        out = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
+        _fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                            out=out.transpose(1, 2))
+        return out
+    out = _ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    return out.transpose(1, 2) if bshd else out
+
+
+def rmsnorm(x, w, eps: float = 1e-5, order: str = "kernel"):
+    """RMSNorm over the last axis; ``order`` is ``"kernel"`` (the TPU
+    kernel's rounding) or ``"model"`` (the JAX models' ``layers.rmsnorm``)."""
+    if x.is_cuda and not _force_plain:
+        return _rn.rmsnorm(x, w, eps=eps, order=order)
+    return _ref.rmsnorm(x, w, eps=eps, order=order)

@@ -16,6 +16,9 @@ partitionable threefry implementation:
 - ``uniform(k, n)``    -> 32 random bits per element are ``out0 ^ out1`` of
   ``threefry(k, counter=(0, iota n))``; the float is
   ``bitcast_f32((bits >> 9) | 0x3F800000) - 1`` in ``[0, 1)``
+- ``gumbel(k, n)``, ``categorical(k, logits)`` -> built on ``uniform`` as
+  ``jax.random`` builds them (the float ``log`` is the only place where the
+  two may part, by an ulp)
 
 All arithmetic is on int64 tensors masked to 32 bits (torch has no uint32
 arithmetic); everything is elementwise, so the same code runs on CPU and
@@ -84,8 +87,33 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     return o0 ^ o1
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """(..., n) float32 uniforms in [0, 1): one ``(n,)`` draw per key."""
+def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """(..., n) float32 uniforms in [minval, maxval): one ``(n,)`` draw per
+    key. As ``jax.random.uniform``: ``max(minval, u * (maxval - minval) +
+    minval)`` in float32, in that order."""
     bits = random_bits(key, n)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return mant.view(torch.float32) - 1.0
+    u = mant.view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return u   # the affine map is the identity: skip its launches
+    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) float32 standard Gumbel noise, ``jax.random.gumbel``'s
+    default ("low") mode: ``-log(-log(uniform(minval=tiny, maxval=1)))``.
+    The uniform bits are identical; ``log`` may round differently by an
+    ulp between XLA:CPU and PyTorch."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, n, minval=tiny, maxval=1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """(...) int64 samples from ``softmax(logits)`` along the last axis:
+    ``argmax(logits + gumbel)``, the first index winning ties
+    (``jax.random.categorical`` with its defaults). ``key`` is (..., 2)
+    and ``logits`` (..., V) float32."""
+    return torch.argmax(logits + gumbel(key, logits.shape[-1]), dim=-1)

@@ -100,3 +100,72 @@ def test_key_from_data_round_trip():
     assert k.dtype == torch.int64 and k.tolist() == data.tolist()
     with pytest.raises(ValueError):
         convert.key_from_data(np.zeros(3, np.uint32), "cpu")
+
+
+# ------------------------------------------------- gumbel and categorical ----
+TINY = float(np.finfo(np.float32).tiny)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_gumbel_bounds_match_jax_bit_for_bit(seed):
+    """The bounds gumbel draws with, (tiny, 1): u * 1 + tiny is u (or tiny
+    for u = 0) however the multiply-add is rounded, so the bits are equal."""
+    got = rng.uniform(rng.key(seed, "cpu"), 97, minval=TINY, maxval=1.0)
+    want = np.asarray(jax.random.uniform(jax.random.key(seed), (97,),
+                                         minval=TINY, maxval=1.0))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got > 0).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_other_bounds_match_jax_to_an_ulp(seed):
+    """For general bounds XLA:CPU contracts ``u * (max - min) + min`` into
+    one fused multiply-add; the port rounds the product and the sum
+    separately, as written: the two part by at most the product's rounding,
+    half an ulp of (max - min) = 5."""
+    got = rng.uniform(rng.key(seed, "cpu"), 97, minval=-2.0, maxval=3.0)
+    want = np.asarray(jax.random.uniform(jax.random.key(seed), (97,),
+                                         minval=-2.0, maxval=3.0))
+    half_ulp = np.spacing(np.float32(5.0)) / 2
+    assert (np.abs(got.numpy() - want) <= half_ulp).all()
+    assert (got >= -2.0).all() and (got < 3.0).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_matches_jax(seed):
+    """gumbel = -log(-log(u)) on bit-equal uniforms: float32 log may round
+    differently by an ulp in XLA:CPU and PyTorch, so 1e-6 relative."""
+    got = rng.gumbel(rng.key(seed, "cpu"), 512)
+    want = np.asarray(jax.random.gumbel(jax.random.key(seed), (512,)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_categorical_matches_jax_vmap(seed):
+    """The rollout's pattern: one key per lane folded with the step, one
+    (V,) categorical draw per lane. Picks are equal (no pick here sits
+    within an ulp of a tie)."""
+    W, V = 8, 512
+    jkeys = jax.random.split(jax.random.key(seed), W)
+    tkeys = convert.key_from_data(np.asarray(jax.random.key_data(jkeys)), "cpu")
+    logits = np.random.default_rng(seed).normal(size=(W, V)).astype(np.float32)
+    for t in range(3):
+        want = jax.vmap(jax.random.categorical)(
+            jax.vmap(lambda k: jax.random.fold_in(jax.random.fold_in(k, 2), t))(
+                jkeys), logits)
+        got = rng.categorical(rng.fold_in(rng.fold_in(tkeys, 2), t),
+                              torch.from_numpy(logits))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_categorical_ties_go_to_the_first_index():
+    """Equal logits + equal noise can only tie if the gumbel draws do;
+    with all logits -inf but two, the first maximal index wins as in
+    jnp.argmax."""
+    logits = torch.full((1, 16), -torch.inf)
+    logits[0, 3] = logits[0, 9] = 0.0
+    key = rng.key(0, "cpu")[None]
+    pick = int(rng.categorical(key, logits)[0])
+    g = rng.gumbel(key, 16)[0]
+    assert pick == (3 if g[3] >= g[9] else 9)
