@@ -16,7 +16,8 @@ and drives the port's two paths:
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
   weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 4
   tokens after a 128-token prompt, 1,024 playouts on 64 lanes per token,
-  run twice with bit-identical tokens and trees.
+  run twice with bit-identical tokens and trees, then once more, and one
+  search stepped side by side, with the kernels' plain versions.
 
 Each phase prints one JSON line; any failed check ends the run with a
 non-zero exit code. Without a GPU it exits non-zero and prints no result.
@@ -67,14 +68,23 @@ LM_SEARCH = dict(n_workers=64, n_tasks=64, branch=8, max_depth=6,
 LM_PREFILL_SHAPE = (64, 9, 3, LM_PROMPT_LEN, 64)   # B, H, Hkv, S, d
 LM_DECODE_NORM_SHAPE = (64, 576)                  # W rows of d_model
 # kernel vs plain version on the card: the tolerances of the JAX package's
-# own kernel tests (tests/test_kernels.py) for attention; for the norm, one
-# float32 rounding of the statistics, or one bf16 step of the output
+# own kernel tests (tests/test_kernels.py) for attention. For the norm in
+# float32, where its two rounding orders are one function, one float32
+# rounding of the statistics (allclose, atol = rtol). In bfloat16 the two
+# orders part by a bf16 step in ~25 % of the elements, which no allclose at
+# this scale can see: there at most 0.1 % of the elements may differ from
+# the plain version, by at most one bf16 step in the "kernel" order (one
+# rounding) and two in the "model" order (a step of the rounded normalised
+# value, times a weight up to ~1.3 and rounded again); the check also makes
+# sure the other order's plain output fails the 0.1 % limit.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.5e-2}
-RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-# root logits of the full-width bf16 model, kernels vs plain versions: both
-# round the same values to bf16 in 61 norms and 30 attentions, where a
-# one-ulp difference (2**-8 relative) can flip; allowed: 5 % of the largest
-# logit
+RMSNORM_F32_TOL = 1e-5
+RMSNORM_BF16_SHARE = 1e-3
+RMSNORM_BF16_STEPS = {"kernel": 1, "model": 2}
+# logits of the full-width bf16 model (prefill, replay and rollout decode
+# steps), kernels vs plain versions: both round the same values to bf16 in
+# 61 norms and 30 attentions, where a one-ulp difference (2**-8 relative)
+# can flip; allowed: 5 % of the largest logit
 LOGITS_TOL = 0.05
 
 
@@ -573,11 +583,22 @@ def check_flash(torch):
     return {"cases": n, "tolerance": FLASH_TOL, "max_abs_err": worst}
 
 
+def bf16_steps(torch, a, b):
+    """Per element, how many bfloat16 steps apart ``a`` and ``b`` lie."""
+    def ordinal(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
 def check_rmsnorm(torch):
     """The rmsnorm kernel against its plain version on the card, both
-    rounding orders, D = 576, 1024 and an odd D, float32 and bfloat16."""
+    rounding orders, D = 576, 1024 and an odd D, float32 and bfloat16 (see
+    RMSNORM_* for the limits)."""
     from repro_torch.kernels import ref, rmsnorm as rn
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    share = steps = 0.0
+    other_share = 1.0
     n = 0
     for D in (576, 1024, 577):
         for N in (64, 64 * 128, 7):
@@ -593,17 +614,45 @@ def check_rmsnorm(torch):
                         want = ref.rmsnorm(x, w, 1e-5, order=order)
                         torch.cuda.synchronize()
                         name = "float32" if dt == torch.float32 else "bfloat16"
-                        tol = RMSNORM_TOL[name]
+                        case = f"rmsnorm D={D} N={N} {name} w {wdt} {order}"
                         err = float((got.float() - want.float()).abs().max())
                         check(got.dtype == dt and got.shape == x.shape,
                               "rmsnorm: wrong output type or shape")
-                        check(torch.allclose(got.float(), want.float(),
-                                             atol=tol, rtol=tol),
-                              f"rmsnorm D={D} N={N} {name} w {wdt} order="
-                              f"{order}: max abs err {err} above {tol}")
                         worst[name] = max(worst[name], err)
                         n += 1
-    return {"cases": n, "tolerance": RMSNORM_TOL, "max_abs_err": worst}
+                        if dt == torch.float32:
+                            tol = RMSNORM_F32_TOL
+                            check(torch.allclose(got, want, atol=tol,
+                                                 rtol=tol),
+                                  f"{case}: max abs err {err} above {tol}")
+                            continue
+                        apart = bf16_steps(torch, got, want)
+                        s = float((apart > 0).float().mean())
+                        check(s <= RMSNORM_BF16_SHARE
+                              and int(apart.max()) <= RMSNORM_BF16_STEPS[order],
+                              f"{case}: {s:.4%} of elements differ, up to "
+                              f"{int(apart.max())} bf16 steps")
+                        share, steps = max(share, s), max(steps, int(apart.max()))
+                        # a kernel with the other order would fail the limit
+                        wrong = ref.rmsnorm(x, w, 1e-5, order={
+                            "kernel": "model", "model": "kernel"}[order])
+                        o = float((bf16_steps(torch, wrong, want) > 0)
+                                  .float().mean())
+                        check(o > RMSNORM_BF16_SHARE,
+                              f"{case}: the other order's output passes the "
+                              f"limit ({o:.4%} of elements differ)")
+                        other_share = min(other_share, o)
+    return {"cases": n, "max_abs_err": worst,
+            "tolerance": {
+                "float32": f"allclose, atol = rtol = {RMSNORM_F32_TOL}",
+                "bfloat16": f"at most {RMSNORM_BF16_SHARE:.1%} of elements "
+                            "differ, by at most "
+                            f"{RMSNORM_BF16_STEPS['kernel']} ('kernel' order) "
+                            f"or {RMSNORM_BF16_STEPS['model']} ('model') bf16 "
+                            "steps"},
+            "bfloat16_share_differing_max": share,
+            "bfloat16_steps_max": steps,
+            "other_order_share_differing_min": other_share}
 
 
 def phase_lm_kernels(torch):
@@ -693,7 +742,7 @@ def lm_path_counters():
 
 def profile_one_lm_iteration(torch, params, mcfg, dcfg, prompt, key):
     """CUDA kernels launched, and device-busy ms, in ONE sync iteration of
-    the LM search (after a prefill), by torch.profiler; (None, None) if the
+    the LM search (after a prefill), by torch.profiler; fails if the
     profiler saw no device activity."""
     from repro_torch import rng
     from repro_torch.core.gscpm import fold_task_keys
@@ -728,52 +777,94 @@ def profile_one_lm_iteration(torch, params, mcfg, dcfg, prompt, key):
                 ("Memcpy", "Memset")):
             kernels += 1
             device_us += float(getattr(ev, "device_time", 0.0) or 0.0)
-    return (kernels or None), (device_us / 1e3 if kernels else None)
+    check(kernels > 0, "torch.profiler saw no CUDA kernel in an LM iteration")
+    return kernels, device_us / 1e3
 
 
-def check_root_logits(torch, params, mcfg, prompt, W):
-    """Prefill with the kernels and with their plain versions on the same
-    card: the root logits agree within LOGITS_TOL (relative to the largest
-    logit), and so does the set of the top-`branch` tokens a search would
-    propose at the root, wherever the plain logits leave a margin larger
-    than the error at the set's boundary."""
+def check_decode_steps(torch, params, mcfg, prompt, dcfg):
+    """The model's decode step, kernels vs plain versions, on the same
+    tokens: after a prefill of the prompt on W lanes each way, every replay
+    and rollout position of one sync iteration (max_depth + rollout_len
+    steps) with the same seeded tokens fed to both. The logits agree within
+    LOGITS_TOL of the largest at every step. (A search stepped both ways
+    compares decode logits only until its decisions part, which at a tied
+    root top-k is before the first decode step.)"""
+    import contextlib
     from repro_torch.kernels import ops
     from repro_torch.models import api
-    from repro_torch.serve.mcts_decode import top_k_tokens
-    tokens = {"tokens": prompt[None, :].repeat(W, 1)}
-    max_len = prompt.shape[0] + 1
-    kern, _ = api.prefill(params, mcfg, tokens, max_len)
-    with ops.plain_versions():
-        plain, _ = api.prefill(params, mcfg, tokens, max_len)
-    kern, plain = kern[0, 0].float(), plain[0, 0].float()
-    err = float((kern - plain).abs().max())
-    scale = float(plain.abs().max())
-    check(err <= LOGITS_TOL * scale,
-          f"root logits: kernels vs plain max abs err {err} above "
+    P, W = LM_PROMPT_LEN, dcfg.n_workers
+    T = dcfg.max_depth + dcfg.rollout_len
+    g = torch.Generator(device="cuda").manual_seed(1)
+    fed = torch.randint(0, mcfg.vocab, (W, T), generator=g, device="cuda",
+                        dtype=torch.int32)
+    runs = []
+    for ctx in (contextlib.nullcontext, ops.plain_versions):
+        with ctx():
+            _, cache = api.prefill(params, mcfg,
+                                   {"tokens": prompt[None, :].repeat(W, 1)},
+                                   P + T + 1)
+            runs.append([api.decode(params, mcfg, fed[:, t:t + 1], P + t,
+                                    cache)[0][:, 0].float() for t in range(T)])
+    errs = [float((a - b).abs().max()) for a, b in zip(*runs)]
+    scale = max(float(b.abs().max()) for b in runs[1])
+    check(max(errs) <= LOGITS_TOL * scale,
+          f"decode steps: kernels vs plain max abs err {max(errs)} above "
           f"{LOGITS_TOL} x {scale}")
-    k = LM_SEARCH["branch"]
-    top_k, top_p = top_k_tokens(kern, k), top_k_tokens(plain, k)
-    kth = plain[top_p[-1].long()]
-    # tokens whose plain logit is clear of the boundary must agree
-    clear = set(torch.nonzero(plain > kth + 2 * err).flatten().tolist())
-    check(clear <= set(top_k.tolist()),
-          "root top-k: a token clearly inside the plain top-k is missing")
-    sure_out = plain < kth - 2 * err
-    check(not bool(sure_out[top_k.long()].any()),
-          "root top-k: a token clearly outside the plain top-k was chosen")
-    return {"max_abs_err": err, "max_abs_logit": scale,
-            "tolerance": f"{LOGITS_TOL} x max |logit|",
-            "top_k_equal": top_k.tolist() == top_p.tolist(),
-            "top_k_kernels": top_k.tolist(), "top_k_plain": top_p.tolist()}
+    return {"steps": T, "lanes": W, "max_abs_err_per_step": errs,
+            "max_abs_logit": scale,
+            "tolerance": f"{LOGITS_TOL} x max |logit|"}
 
 
-def phase_lm_search(torch, n_playouts: int, n_tokens: int):
+def check_decode_vs_plain(torch, params, mcfg, prompt, dcfg, key, tokens):
+    """The LM path's decoding, kernels vs plain versions on the same card.
+    `mcts_generate` runs again inside `ops.plain_versions()` (the same
+    prompt, key and budget), and one search runs both ways side by side,
+    one sync iteration at a time (`parity.step_decode_search`): the first
+    search whose committed token differs, else the first search. Its
+    prefill, replay and rollout logits agree within LOGITS_TOL of the
+    largest logit; every decision on which the two runs part is within the
+    measured difference of the numbers it was taken on; and a committed
+    token may differ only after such a parting."""
+    from repro_torch import parity, rng
+    from repro_torch.kernels import ops
+    from repro_torch.serve.mcts_decode import mcts_generate
+    P = LM_PROMPT_LEN
+    with ops.plain_versions():
+        plain, _ = mcts_generate(params, mcfg, prompt, LM_TOKENS, dcfg, key)
+    differ = torch.nonzero(plain != tokens).flatten()
+    i = int(differ[0]) - P if differ.numel() else 0
+    rep = parity.step_decode_search(params, mcfg, dcfg, tokens[:P + i],
+                                    rng.fold_in(key, i), ops.plain_versions)
+    scale = rep["max_abs_logit"]
+    for name in ("root_err", "leaf_err", "rollout_err"):
+        check(rep[name] <= LOGITS_TOL * scale,
+              f"LM search {name}: kernels vs plain max abs err {rep[name]} "
+              f"above {LOGITS_TOL} x {scale}")
+    check(not rep["unexcused"],
+          "LM search: kernels and plain versions part at decisions their "
+          f"measured error does not explain: {rep['unexcused'][:3]}")
+    check(rep["best_tokens"] == [int(tokens[P + i]), int(plain[P + i])],
+          f"search {i} stepped ends on {rep['best_tokens']}, mcts_generate "
+          f"committed {[int(tokens[P + i]), int(plain[P + i])]}")
+    check(differ.numel() == 0 or rep["parted_at"] is not None,
+          f"committed token {i} differs, yet the stepped search never parted")
+    return {"tokens_kernels": tokens[P:].tolist(),
+            "tokens_plain": plain[P:].tolist(),
+            "tokens_equal": differ.numel() == 0, "stepped_search": i,
+            "tolerance": f"logits {LOGITS_TOL} x max |logit|; a parting "
+                         "decision's margins within 2 x the measured "
+                         "difference of its numbers",
+            **{k: v for k, v in rep.items() if k != "unexcused"}}
+
+
+def phase_lm_search(torch):
     """SmolLM-135M at its published width (30 layers, d=576, 9 heads over 3
     KV heads, vocab 49,152, bf16, flash prefill), random weights from seed
-    0: `mcts_generate` of `n_tokens` tokens after a 128-token prompt, run
+    0: `mcts_generate` of LM_TOKENS tokens after a 128-token prompt, run
     twice (tokens and every search's tree bit-identical), with launch
-    counters, invariants, timings, a profiled iteration and the
-    kernels-vs-plain check of the root logits."""
+    counters, invariants, timings, a profiled iteration, and the decoding
+    held against the plain versions (`check_decode_steps`,
+    `check_decode_vs_plain`)."""
     from repro_torch import parity, rng
     from repro_torch.configs import get_config
     from repro_torch.core.tree import check_invariants
@@ -787,6 +878,7 @@ def phase_lm_search(torch, n_playouts: int, n_tokens: int):
     g = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, mcfg.vocab, (LM_PROMPT_LEN,), generator=g,
                            device="cuda", dtype=torch.int32)
+    n_tokens, n_playouts = LM_TOKENS, LM_PLAYOUTS
     dcfg = MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts": n_playouts})
     key = rng.key(0, "cuda")
 
@@ -854,7 +946,9 @@ def phase_lm_search(torch, n_playouts: int, n_tokens: int):
 
     n_kernels, dev_ms = profile_one_lm_iteration(torch, params, mcfg, dcfg,
                                                  prompt, key)
-    logits = check_root_logits(torch, params, mcfg, prompt, W)
+    decode_steps = check_decode_steps(torch, params, mcfg, prompt, dcfg)
+    vs_plain = check_decode_vs_plain(torch, params, mcfg, prompt, dcfg, key,
+                                     toks_a)
     search_s = sum(s["time_s"] for s in st_a)
     prefill_s = [s["prefill_s"] for s in st_a]
     emit("lm_search",
@@ -876,7 +970,8 @@ def phase_lm_search(torch, n_playouts: int, n_tokens: int):
          mean_descent_levels=launches["uct_select"] / iters,
          cuda_kernels_in_one_iteration=n_kernels,
          device_ms_in_one_iteration=dev_ms,
-         peak_memory_mb=peak_mb, root_logits_kernels_vs_plain=logits)
+         peak_memory_mb=peak_mb, decode_steps_vs_plain=decode_steps,
+         kernels_vs_plain=vs_plain)
     return launches
 
 
@@ -885,15 +980,8 @@ def main(argv=None) -> int:
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
                    help="budget of the full-width search")
     p.add_argument("--sequential-playouts", type=int, default=2048)
-    p.add_argument("--lm-playouts", type=int, default=LM_PLAYOUTS,
-                   help="budget of each search of the LM path")
-    p.add_argument("--lm-tokens", type=int, default=LM_TOKENS,
-                   help="tokens the LM path generates")
     p.add_argument("--only-kernels", action="store_true",
                    help="stop after the build and the kernel checks")
-    p.add_argument("--only-lm", action="store_true",
-                   help="run the LM kernels and the LM path only (a quick "
-                        "check while working on them; prints no result)")
     args = p.parse_args(argv)
 
     import torch
@@ -907,11 +995,6 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smi = phase_env(torch)
     phase_build()
-    if args.only_lm:
-        phase_lm_kernels(torch)
-        phase_lm_search(torch, args.lm_playouts, args.lm_tokens)
-        emit("summary", seconds=round(time.perf_counter() - t0, 1))
-        return 0
     phase_rng(torch)
     records = phase_kernels(torch) + phase_lm_kernels(torch)
     if args.only_kernels:
@@ -921,7 +1004,7 @@ def main(argv=None) -> int:
         return 0
     launches, rate = phase_search(torch, args.playouts)
     seq_rate = phase_sequential(torch, args.sequential_playouts)
-    lm_launches = phase_lm_search(torch, args.lm_playouts, args.lm_tokens)
+    lm_launches = phase_lm_search(torch)
     for r in records:
         # each kernel's count from its own path: the Hex search for
         # uct_select and hex_winner, the LM search for the LM kernels

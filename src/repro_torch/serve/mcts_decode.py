@@ -217,9 +217,10 @@ def _iteration(tree: Tree, params, mcfg: ModelConfig, cfg: MCTSDecodeConfig,
 
     ``record``, when given, receives the iteration's decisions — the
     descent's paths, the leaves' logits, the proposals and their gumbel
-    noise, each rollout step's sampling scores (logits / T + gumbel) and
-    samples — so that two implementations can be held against each other
-    decision by decision (the parity tests do)."""
+    noise, the rollout's first token, each rollout step's logits / T,
+    sampling scores (logits / T + gumbel) and samples — so that two
+    implementations can be held against each other decision by decision
+    (the parity tests and ``parity.step_decode_search`` do)."""
     W = cfg.n_workers
     V = root_logits.shape[-1]
 
@@ -258,6 +259,8 @@ def _iteration(tree: Tree, params, mcfg: ModelConfig, cfg: MCTSDecodeConfig,
     start_pos = prompt_len + cfg.max_depth   # the parked replay ends here
     tok = torch.where(expanded, torch.clamp(moves, min=0),
                       torch.argmax(leaf_logits, dim=-1).to(torch.int32))
+    if record is not None:
+        record.update(rollout_first=tok, rollout_logits=[])
     roll_keys = rng.fold_in(iter_keys, 2)
     logp_sum = torch.zeros((W,), dtype=torch.float32, device=paths.device)
     for t in range(cfg.rollout_len):
@@ -268,6 +271,7 @@ def _iteration(tree: Tree, params, mcfg: ModelConfig, cfg: MCTSDecodeConfig,
         step_key = rng.fold_in(roll_keys, t)
         nxt = rng.categorical(step_key, logits_t)
         if record is not None:
+            record["rollout_logits"].append(logits_t)
             record["scores"].append(logits_t + rng.gumbel(step_key, V))
             record["samples"].append(nxt)
         logp = torch.log_softmax(logits, dim=-1)

@@ -13,6 +13,7 @@ converted weights (reduced smollm-135m, 2 layers), and against itself.
 - ``mcts_generate`` emits the reference's tokens; root visits == playouts.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -27,6 +28,8 @@ from repro.models import api as japi
 from repro.serve import mcts_decode as jmd
 from repro_torch import convert, parity, rng
 from repro_torch.core import tree as tt
+from repro_torch.kernels import ops
+from repro_torch.models import api as tapi
 from repro_torch.serve import mcts_decode as tmd
 from torch_parity_util import (assert_same_decode_search, decode_tree_parts,
                                explain_decode_divergence, jax_keys,
@@ -184,6 +187,74 @@ def test_divergence_explainer_steps_both_packages():
     with pytest.raises(AssertionError, match="found no difference"):
         explain_decode_divergence(jcfg, jp, tcfg, tp, prompt_for(0), kw, 0,
                                   ["wins"])
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """Inside the context ``module.name`` is ``fn(original)``."""
+    orig = getattr(module, name)
+    setattr(module, name, fn(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+STEP_KW = {**DKW, "n_playouts": 16, "n_tasks": 4}
+
+
+def step_search(other, seed=0):
+    _, _, tcfg, tp = model_pair(seed, False)
+    return parity.step_decode_search(
+        tp, tcfg, tmd.MCTSDecodeConfig(**STEP_KW),
+        torch.from_numpy(prompt_for(seed)), rng.key(seed, "cpu"), other)
+
+
+def test_stepping_a_search_against_itself_never_parts():
+    """On the CPU the kernels' dispatch IS the plain version: the stepped
+    pair agrees to the bit and ends on the search's own token."""
+    _, _, tcfg, tp = model_pair(0, False)
+    _, stats = tmd.mcts_decode_search(
+        tp, tcfg, torch.from_numpy(prompt_for(0)),
+        tmd.MCTSDecodeConfig(**STEP_KW), rng.key(0, "cpu"), device="cpu")
+    rep = step_search(ops.plain_versions)
+    assert rep["iterations"] == rep["of"] == stats["sync_iterations"] == 4
+    assert rep["root_err"] == rep["leaf_err"] == rep["rollout_err"] == 0.0
+    assert rep["partings"] == 0 and rep["parted_at"] is None
+    assert rep["best_tokens"] == [stats["best_token"]] * 2
+
+
+def test_stepping_excuses_partings_of_a_perturbed_model():
+    """Logits moved by a few bf16 steps: the decisions that flip all sit
+    within twice the measured logit error."""
+    g = torch.Generator().manual_seed(0)
+
+    def noisy(decode):
+        def run(*a, **k):
+            logits, cache = decode(*a, **k)
+            return logits + 0.05 * torch.randn(logits.shape, generator=g), cache
+        return run
+    rep = step_search(lambda: patched(tapi, "decode", noisy))
+    assert 0 < rep["leaf_err"] and 0 < rep["rollout_err"] <= 0.5
+    assert rep["partings"] > 0 and rep["unexcused"] == []
+    assert rep["first"]["decision"] in {"uct_pick", "top_k", "rollout_first",
+                                        "rollout_sample"}
+
+
+def test_stepping_flags_a_wrong_uct_pick():
+    """A selection that ignores the scores (always the last valid child)
+    parts at a UCT pick on equal scores: the wrong run's own margin is
+    negative, and no error excuses it."""
+    def last_valid(select):
+        def run(wins, visits, vloss, ptot, valid, cp, noise=None,
+                lane_mask=None):
+            return (valid.sum(-1) - 1).clamp(min=0).to(torch.int32)
+        return run
+    rep = step_search(lambda: patched(ops, "uct_select", last_valid))
+    assert rep["parted_at"] is not None and rep["best_tokens"][0] != -1
+    bad = rep["unexcused"]
+    assert bad and bad[0]["decision"] == "uct_pick" and bad[0]["err"] == 0.0
+    assert bad[0]["gaps"][0] > 0 > bad[0]["gaps"][1]
 
 
 def test_tree_comparison_tolerates_only_wins_rounding():
