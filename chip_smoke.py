@@ -6,8 +6,10 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, holds each against its plain PyTorch version on the card,
-and drives the port's two paths:
+with ``nvcc`` (printing ``ptxas``'s registers, shared memory and spill bytes
+for each), holds each against its plain PyTorch version on the card — both
+bodies of ``flash_attention``, the bf16 tensor-core one and the CUDA-core
+one — and drives the port's two paths:
 
 - one full-width GSCPM Hex search (11x11, 256 lanes, the paper's 1,048,576
   playouts) through ``repro_torch.core.gscpm.gscpm_search``, checking among
@@ -25,7 +27,10 @@ non-zero exit code. Without a GPU it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit; the line before that is the
 ``{"kernels": [...]}`` record with every kernel's time, bound and launches
-on its path (each path's counters are zeroed just before it runs).
+on its path (each path's counters are zeroed just before it runs);
+``flash_attention``'s record gives each body's time and launches under
+``bodies``, and every library yardstick is timed eagerly and in a CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -78,6 +83,17 @@ LM_DECODE_NORM_SHAPE = (64, 576)                  # W rows of d_model
 # value, times a weight up to ~1.3 and rounded again); the check also makes
 # sure the other order's plain output fails the 0.1 % limit.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.5e-2}
+# check_flash's shapes (B, H, Hkv, S, d), each in float32 and bfloat16,
+# causal or not: the prefill shape, GQA, MQA, head dims 32-128, sequence
+# lengths off the tile size, S = 1024 (the tensor-core body's
+# double-buffered loop turns 16 times), the tensor-core body at d = 128 and
+# 96, and bf16 at d = 48, which goes to the CUDA-core body
+FLASH_CASES = [
+    (64, 9, 3, 128, 64), (2, 4, 2, 128, 64), (1, 8, 1, 128, 128),
+    (2, 2, 2, 128, 80), (2, 4, 2, 129, 64), (3, 6, 2, 200, 64),
+    (1, 2, 1, 1, 64), (2, 4, 4, 37, 32), (2, 9, 3, 1024, 64),
+    (2, 8, 2, 200, 128), (1, 8, 2, 1024, 128), (2, 4, 2, 300, 96),
+    (2, 2, 1, 77, 48)]
 RMSNORM_F32_TOL = 1e-5
 RMSNORM_BF16_SHARE = 1e-3
 RMSNORM_BF16_STEPS = {"kernel": 1, "model": 2}
@@ -97,20 +113,53 @@ def check(cond, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean milliseconds per call, by CUDA events around `iters` calls."""
+def time_ms(fn, iters: int = 200, warmup: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call: CUDA events around `iters` calls, the median
+    of `reps` such runs (a host that shares its cores varies run to run;
+    every kernel and its yardstick are timed the same way)."""
+    import statistics
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
+    runs = []
+    for _ in range(reps):
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop) / iters)
+    return statistics.median(runs)
+
+
+def time_pair_ms(fn_a, fn_b, iters: int = 200, warmup: int = 20,
+                 pairs: int = 6) -> tuple[float, float]:
+    """Milliseconds per call of `fn_a` and of `fn_b` (a kernel and its
+    library yardstick): batches of `iters` calls timed by CUDA events, the
+    two taken in turns (a b, b a, ...) for `pairs` pairs, the median of
+    each, so a drift of the shared host falls on both alike."""
+    import statistics
+    import torch
+    for fn in (fn_a, fn_b):
+        for _ in range(warmup):
+            fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    runs = ([], [])
+    for i in range(pairs):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            fn = (fn_a, fn_b)[j]
+            start.record()
+            for _ in range(iters):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
+            runs[j].append(start.elapsed_time(stop) / iters)
+    return statistics.median(runs[0]), statistics.median(runs[1])
 
 
 def graph_ms(fn, launches: int = 50, replays: int = 20) -> float:
@@ -150,10 +199,17 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load()
+    ptxas = _build.ptxas_report()
+    check(ptxas, "no ptxas report beside the built library")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          compiled_now=_build.last_build_seconds is not None,
          sources=[os.path.relpath(s, HERE) for s in _build.sources()],
          flags=list(_build.NVCC_FLAGS))
+    # nvcc -Xptxas -v, per kernel: registers a thread, static shared memory
+    # (the flash and norm kernels' shared memory is dynamic: lm_kernels
+    # gives it), stack frame and spill bytes
+    for row in ptxas:
+        emit("ptxas", **row)
 
 
 # --------------------------------------------------------------------- rng ----
@@ -544,24 +600,29 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
 
 
 def check_flash(torch):
-    """The flash kernel against its plain version on the card: the prefill
-    shape, GQA, MQA, head dims 64/80/128, causal or not, float32 and
-    bfloat16, sequence lengths off the tile size, and the model's strided
-    (B, S, H, d) layout through ops."""
+    """Both flash bodies against the plain version on the card, at every
+    shape of FLASH_CASES, causal or not, float32 and bfloat16, and in the
+    model's strided (B, S, H, d) layout through ops; each call must run on
+    the body ``body_for`` names."""
     from repro_torch.kernels import flash_attention as fa, ops, ref
-    cases = [  # B, H, Hkv, S, d
-        (64, 9, 3, 128, 64), (2, 4, 2, 128, 64), (1, 8, 1, 128, 128),
-        (2, 2, 2, 128, 80), (2, 4, 2, 129, 64), (3, 6, 2, 200, 64),
-        (1, 2, 1, 1, 64), (2, 4, 4, 37, 32)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_by_body = dict.fromkeys(fa.BODIES, 0.0)
+    cases_by_body = dict.fromkeys(fa.BODIES, 0)
     n = 0
-    for i, (B, H, Hkv, S, d) in enumerate(cases):
+    for i, (B, H, Hkv, S, d) in enumerate(FLASH_CASES):
         for dt in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 g = torch.Generator(device="cuda").manual_seed(i)
                 r = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dt)
                 q, k, v = r(B, H, S, d), r(B, Hkv, S, d), r(B, Hkv, S, d)
+                body = fa.body_for(dt, d)
+                before = dict(fa.flash_attention.launches_by_body)
                 got = fa.flash_attention(q, k, v, causal=causal)
+                ran = {b: fa.flash_attention.launches_by_body[b] - before[b]
+                       for b in fa.BODIES}
+                check(ran == {b: int(b == body) for b in fa.BODIES},
+                      f"flash_attention {(B, H, Hkv, S, d)} {dt}: ran {ran}, "
+                      f"expected the {body} body")
                 want = ref.flash_attention(q, k, v, causal=causal)
                 # the model's layout: strided views in, (B, S, H, d) out
                 got_bshd = ops.flash_attention(
@@ -579,8 +640,12 @@ def check_flash(torch):
                 check(torch.equal(got_bshd.transpose(1, 2), got),
                       "flash_attention: the strided bshd call differs")
                 worst[name] = max(worst[name], err)
+                worst_by_body[body] = max(worst_by_body[body], err)
+                cases_by_body[body] += 1
                 n += 1
-    return {"cases": n, "tolerance": FLASH_TOL, "max_abs_err": worst}
+    return {"cases": n, "tolerance": FLASH_TOL, "max_abs_err": worst,
+            "cases_by_body": cases_by_body,
+            "max_abs_err_by_body": worst_by_body}
 
 
 def bf16_steps(torch, a, b):
@@ -655,14 +720,33 @@ def check_rmsnorm(torch):
             "other_order_share_differing_min": other_share}
 
 
+def host_us(torch, fn, calls: int = 2000) -> float:
+    """Host microseconds per call of `fn`: `calls` calls on the host clock,
+    the device synchronised before and after (what the host spends to
+    launch one call, when the device keeps up)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def phase_lm_kernels(torch):
     """Hold the two LM kernels against their plain versions on the card,
     then time them at the shapes the LM path gives them: flash attention at
     the prefill (64 lanes, 9 heads over 3 KV heads, 128 tokens, d=64, bf16,
-    the model's strided layout), rmsnorm at the decode step (64 x 576 bf16,
-    the model's rounding order)."""
+    the model's strided layout: the tensor-core body; the CUDA-core body on
+    the same shape in float32, for the record), rmsnorm at the decode step
+    (64 x 576 bf16, the model's rounding order) and at the prefill (8192 x
+    576). Each library yardstick is timed eagerly, in turns with its kernel
+    (``time_pair_ms``), and in a CUDA graph, so host is compared with host
+    and device with device."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, flash_attention as fa, ops, ref
     flash = check_flash(torch)
     norm = check_rmsnorm(torch)
 
@@ -672,48 +756,87 @@ def phase_lm_kernels(torch):
     q = torch.randn(B, S, H, d, generator=g, device="cuda").to(bf)
     k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
     v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
+    check(fa.body_for(q.dtype, d) == "tensor_cores",
+          "the prefill's attention is not routed to the tensor-core body")
     fa_call = lambda: ops.flash_attention(q, k, v, causal=True)
-    fa_ms, fa_graph = time_ms(fa_call), graph_ms(fa_call)
+    fa_graph = graph_ms(fa_call)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     fa_plain = time_ms(lambda: ref.flash_attention(qh, kh, vh, causal=True),
                        iters=20, warmup=3)
     qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
-    fa_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=True, enable_gqa=True))
-    lib_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
-                                             enable_gqa=True)
-    fa_lib_err = float((lib_out.transpose(1, 2).float()
+    lib_call = lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True)
+    lib_strided = lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True)
+    fa_ms, fa_lib = time_pair_ms(fa_call, lib_call)
+    fa_lib_graph = graph_ms(lib_call)
+    fa_lib_s, fa_lib_s_graph = time_ms(lib_strided), graph_ms(lib_strided)
+    fa_lib_err = float((lib_call().transpose(1, 2).float()
                         - fa_call().float()).abs().max())
     # each input read once, the output written once; the causal pairs only
     fa_bytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
     fa_ops = 4 * B * H * (S * (S + 1) // 2) * d
     fa_bound, fa_by = bound_ms(fa_bytes, fa_ops, BF16_TENSOR_OPS_PER_S)
+    # the CUDA-core body on the same shape in float32 (for the record: the
+    # LM path runs bf16)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_call = lambda: ops.flash_attention(q32, k32, v32, causal=True)
+    f32_bound, f32_by = bound_ms(2 * fa_bytes, fa_ops, OPS_PER_S)
+    cuda_cores = {"dtype": "float32", "ms": time_ms(f32_call, iters=50),
+                  "in_graph_ms": graph_ms(f32_call, launches=10),
+                  "bound_ms": f32_bound, "bound_by": f32_by}
+    tc_smem = 2 * (64 + 4 * 64) * (d + 8)   # Q and two K/V stages, bf16
+    blocks_per_sm = _build.load().repro_flash_attention_tc_blocks_per_sm(d)
+    tensor_cores = {
+        "dtype": "bfloat16", "ms": fa_ms, "in_graph_ms": fa_graph,
+        "bound_ms": fa_bound, "bound_by": fa_by,
+        "achieved_bytes_per_s": fa_bytes / (fa_graph * 1e-3),
+        "ctas": B * H * -(-S // 64), "dynamic_smem_bytes": tc_smem,
+        "ctas_per_sm": blocks_per_sm,
+        "occupancy_warps_per_sm": 4 * blocks_per_sm}
 
     N, D = LM_DECODE_NORM_SHAPE
     x = torch.randn(N, 1, D, generator=g, device="cuda").to(bf)
     w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
     rn_call = lambda: ops.rmsnorm(x, w, 1e-5, order="model")
-    rn_ms, rn_graph = time_ms(rn_call), graph_ms(rn_call)
+    rn_lib_call = lambda: F.rms_norm(x, (D,), w, 1e-5)
+    rn_ms, rn_lib = time_pair_ms(rn_call, rn_lib_call)
+    rn_graph, rn_lib_graph = graph_ms(rn_call), graph_ms(rn_lib_call)
     rn_plain = time_ms(lambda: ref.rmsnorm(x, w, 1e-5, order="model"))
-    rn_lib = time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5))
     rn_bytes = 2 * (2 * N * D + D)
     rn_ops = 4 * N * D            # square, add, scale, weight per element
     rn_bound, rn_by = bound_ms(rn_bytes, rn_ops, OPS_PER_S)
-    # the prefill's norm shape, for the record
+    # the wrapper's host path, piece by piece (host clock, microseconds)
+    rn_host = {"wrapper": host_us(torch, rn_call),
+               "library": host_us(torch, rn_lib_call),
+               "empty_like": host_us(torch, lambda: torch.empty_like(x)),
+               "stream_on": host_us(torch,
+                                    lambda: _build.stream_on(x.get_device()))}
+    # the prefill's norm shape
     xp = torch.randn(B, S, D, generator=g, device="cuda").to(bf)
-    rn_prefill_ms = graph_ms(lambda: ops.rmsnorm(xp, w, 1e-5, order="model"))
+    rn_prefill_graph = graph_ms(lambda: ops.rmsnorm(xp, w, 1e-5,
+                                                    order="model"))
+    rn_prefill_lib_graph = graph_ms(lambda: F.rms_norm(xp, (D,), w, 1e-5))
+    rn_prefill_bound, _ = bound_ms(2 * (2 * B * S * D + D), 4 * B * S * D,
+                                   OPS_PER_S)
 
     records = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:38",
          "shape": [B, H, Hkv, S, d], "dtype": "bfloat16", "layout": "bshd",
+         "body": "tensor_cores",
          "checked": flash, "max_abs_err": flash["max_abs_err"]["bfloat16"],
          "ms": fa_ms, "in_graph_ms": fa_graph, "plain_ms": fa_plain,
          "bound_ms": fa_bound, "bound_by": fa_by, "library_ms": fa_lib,
+         "library_in_graph_ms": fa_lib_graph,
+         "library_strided_ms": fa_lib_s,
+         "library_strided_in_graph_ms": fa_lib_s_graph,
          "library_call": "torch.nn.functional.scaled_dot_product_attention"
-                         "(is_causal=True, enable_gqa=True)",
-         "library_max_abs_diff": fa_lib_err},
+                         "(is_causal=True, enable_gqa=True), on contiguous "
+                         "(B, H, S, d) copies and on the strided bshd views",
+         "library_max_abs_diff": fa_lib_err,
+         "bodies": {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores}},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:19",
@@ -721,14 +844,22 @@ def phase_lm_kernels(torch):
          "checked": norm, "max_abs_err": norm["max_abs_err"]["bfloat16"],
          "ms": rn_ms, "in_graph_ms": rn_graph, "plain_ms": rn_plain,
          "bound_ms": rn_bound, "bound_by": rn_by, "library_ms": rn_lib,
+         "library_in_graph_ms": rn_lib_graph,
          "library_call": "torch.nn.functional.rms_norm",
-         "prefill_shape": [B, S, D], "prefill_in_graph_ms": rn_prefill_ms},
+         "host_us": rn_host, "dynamic_smem_bytes": 4 * D,
+         "prefill_shape": [B, S, D], "prefill_in_graph_ms": rn_prefill_graph,
+         "prefill_bound_ms": rn_prefill_bound,
+         "prefill_library_in_graph_ms": rn_prefill_lib_graph},
     ]
     emit("lm_kernels", flash_attention=flash, rmsnorm=norm,
-         timed={r["name"]: {k: r[k] for k in ("ms", "in_graph_ms", "plain_ms",
-                                                "bound_ms", "bound_by",
-                                                "library_ms")}
-                for r in records})
+         timed={r["name"]: {k: r[k] for k in (
+             "ms", "in_graph_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library_in_graph_ms")}
+                for r in records},
+         flash_bodies=records[0]["bodies"], rmsnorm_host_us=rn_host,
+         rmsnorm_prefill={k: records[1][k] for k in (
+             "prefill_shape", "prefill_in_graph_ms", "prefill_bound_ms",
+             "prefill_library_in_graph_ms")})
     return records
 
 
@@ -738,6 +869,38 @@ def lm_path_counters():
     from repro_torch.kernels import uct_select as us
     return {"flash_attention": fa.flash_attention, "rmsnorm": rn.rmsnorm,
             "uct_select": us.uct_select}
+
+
+def profile_prefill(torch, params, mcfg, tokens, max_len):
+    """One prefill of `tokens` (W, P): its host wall time (ms, ending in a
+    device synchronise), then, by torch.profiler on a second prefill, the
+    CUDA kernels it launches, their device-busy ms and the flash kernels'
+    share of it. Fails if the profiler saw no device activity."""
+    from repro_torch.models import api
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run = lambda: api.prefill(params, mcfg, {"tokens": tokens}, max_len)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels, device_us, flash_us = 0, 0.0, 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith(
+                ("Memcpy", "Memset")):
+            kernels += 1
+            us = float(getattr(ev, "device_time", 0.0) or 0.0)
+            device_us += us
+            if "flash" in ev.name:
+                flash_us += us
+    check(kernels > 0, "torch.profiler saw no CUDA kernel in a prefill")
+    return {"wall_ms": wall_ms, "cuda_kernels": kernels,
+            "device_ms": device_us / 1e3, "flash_device_ms": flash_us / 1e3}
 
 
 def profile_one_lm_iteration(torch, params, mcfg, dcfg, prompt, key):
@@ -886,9 +1049,11 @@ def phase_lm_search(torch):
     mcts_generate(params, mcfg, prompt, 1,
                   MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts": 64}), key)
 
+    from repro_torch.kernels import flash_attention as fa
     counters = lm_path_counters()
     for c in counters.values():
         c.launches = 0   # the LM path's counts: zeroed just before
+    fa.flash_attention.launches_by_body = dict.fromkeys(fa.BODIES, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     toks_a, st_a = mcts_generate(params, mcfg, prompt, n_tokens, dcfg, key,
@@ -896,6 +1061,7 @@ def phase_lm_search(torch):
     torch.cuda.synchronize()
     wall_a = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    flash_by_body = dict(fa.flash_attention.launches_by_body)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     toks_b, st_b = mcts_generate(params, mcfg, prompt, n_tokens, dcfg, key,
@@ -922,6 +1088,9 @@ def phase_lm_search(torch):
     check(launches["flash_attention"] == n_tokens * L,
           f"flash_attention launches {launches['flash_attention']} != "
           f"{n_tokens} prefills x {L} layers")
+    check(flash_by_body == {"tensor_cores": n_tokens * L, "cuda_cores": 0},
+          f"flash_attention launches by body {flash_by_body}: the bf16 "
+          "prefill must run on the tensor-core body only")
     check(launches["rmsnorm"] == (2 * L + 1) * (n_tokens + steps),
           f"rmsnorm launches {launches['rmsnorm']} != 61 x (prefills + "
           f"decode steps)")
@@ -943,6 +1112,8 @@ def phase_lm_search(torch):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t1) * 100
     del cache
+    prefill = profile_prefill(torch, params, mcfg,
+                              prompt[None, :].repeat(W, 1), max_len)
 
     n_kernels, dev_ms = profile_one_lm_iteration(torch, params, mcfg, dcfg,
                                                  prompt, key)
@@ -960,19 +1131,20 @@ def phase_lm_search(torch):
          seconds_generate=wall_a, seconds_search=search_s,
          init_params_s=init_s,
          prefill_ms=[1e3 * p for p in prefill_s],
+         prefill_profiled=prefill,
          sync_iterations=iters,
          ms_per_sync_iteration=1e3 * search_s / iters,
          ms_per_decode_step=decode_ms,
          playouts_per_s=n_tokens * n_playouts / search_s,
          tokens_per_s=n_tokens / wall_a,
          tree_nodes=[s["tree_nodes"] for s in st_a],
-         launches=launches,
+         launches=launches, flash_attention_launches_by_body=flash_by_body,
          mean_descent_levels=launches["uct_select"] / iters,
          cuda_kernels_in_one_iteration=n_kernels,
          device_ms_in_one_iteration=dev_ms,
          peak_memory_mb=peak_mb, decode_steps_vs_plain=decode_steps,
          kernels_vs_plain=vs_plain)
-    return launches
+    return launches, flash_by_body
 
 
 def main(argv=None) -> int:
@@ -1000,11 +1172,13 @@ def main(argv=None) -> int:
     if args.only_kernels:
         for r in records:
             r["launches"] = 0
+            for body_record in r.get("bodies", {}).values():
+                body_record["launches"] = 0
         print(json.dumps({"kernels": records}), flush=True)
         return 0
     launches, rate = phase_search(torch, args.playouts)
     seq_rate = phase_sequential(torch, args.sequential_playouts)
-    lm_launches = phase_lm_search(torch)
+    lm_launches, flash_by_body = phase_lm_search(torch)
     for r in records:
         # each kernel's count from its own path: the Hex search for
         # uct_select and hex_winner, the LM search for the LM kernels
@@ -1012,6 +1186,8 @@ def main(argv=None) -> int:
         r["launches_by_path"] = {
             "hex_search": launches.get(r["name"], 0),
             "lm_search": lm_launches.get(r["name"], 0)}
+        for body, body_record in r.get("bodies", {}).items():
+            body_record["launches"] = flash_by_body[body]   # the LM path's
     emit("summary", seconds=round(time.perf_counter() - t0, 1),
          search_playouts_per_s=rate, sequential_playouts_per_s=seq_rate)
     print(json.dumps({"kernels": records}), flush=True)

@@ -27,6 +27,7 @@
 // bits. `size` is a run-time argument (n = size*size <= kMaxCells).
 
 #include <cuda_runtime.h>
+#include <cstring>
 
 namespace {
 
@@ -99,12 +100,28 @@ __global__ void hex_winner_kernel(const signed char* __restrict__ boards,
 
 }  // namespace
 
-extern "C" int repro_hex_winner(const void* boards, int W, int size,
-                                int rounds, void* out, void* stream) {
-  if (W <= 0 || size < 1 || size * size > kMaxCells || rounds < 0)
+namespace {
+// the argument struct: kernels/_build.py ARGS["repro_hex_winner"]
+struct HexWinnerArgs {
+  const void* boards;
+  int W, size, rounds;
+  void* out;
+  void* stream;
+};
+}  // namespace
+
+extern "C" int repro_hex_winner_args_bytes() {
+  return static_cast<int>(sizeof(HexWinnerArgs));
+}
+
+extern "C" int repro_hex_winner(const void* packed) {
+  HexWinnerArgs a;
+  memcpy(&a, packed, sizeof a);
+  if (a.W <= 0 || a.size < 1 || a.size * a.size > kMaxCells || a.rounds < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  hex_winner_kernel<<<W, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const signed char*>(boards), size, rounds,
-      static_cast<signed char*>(out));
+  hex_winner_kernel<<<a.W, kThreads, 0,
+                      static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const signed char*>(a.boards), a.size, a.rounds,
+      static_cast<signed char*>(a.out));
   return static_cast<int>(cudaGetLastError());
 }

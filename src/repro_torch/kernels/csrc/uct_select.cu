@@ -19,6 +19,7 @@
 // --use_fast_math and WITH -fmad=false.
 
 #include <cuda_runtime.h>
+#include <cstring>
 #include <climits>
 #include <math_constants.h>
 
@@ -71,20 +72,40 @@ __global__ void uct_select_kernel(
 
 }  // namespace
 
-extern "C" int repro_uct_select(
-    const void* wins, const void* visits, const void* vloss,
-    const void* parent_total, const void* valid, const void* noise,
-    const void* lane_mask, float cp, int W, int C, void* out, void* stream) {
-  if (W <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (W + kWarpsPerBlock - 1) / kWarpsPerBlock;
+namespace {
+// the argument struct: kernels/_build.py ARGS["repro_uct_select"]
+struct UctArgs {
+  const void* wins;
+  const void* visits;
+  const void* vloss;
+  const void* parent_total;
+  const void* valid;
+  const void* noise;      // null: none
+  const void* lane_mask;  // null: all lanes live
+  float cp;
+  int W, C;
+  void* out;
+  void* stream;
+};
+}  // namespace
+
+extern "C" int repro_uct_select_args_bytes() {
+  return static_cast<int>(sizeof(UctArgs));
+}
+
+extern "C" int repro_uct_select(const void* packed) {
+  UctArgs a;
+  memcpy(&a, packed, sizeof a);
+  if (a.W <= 0 || a.C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (a.W + kWarpsPerBlock - 1) / kWarpsPerBlock;
   uct_select_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(wins), static_cast<const float*>(visits),
-      static_cast<const float*>(vloss),
-      static_cast<const float*>(parent_total),
-      static_cast<const unsigned char*>(valid),
-      static_cast<const float*>(noise),
-      static_cast<const unsigned char*>(lane_mask), cp, W, C,
-      static_cast<int*>(out));
+                      static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const float*>(a.wins), static_cast<const float*>(a.visits),
+      static_cast<const float*>(a.vloss),
+      static_cast<const float*>(a.parent_total),
+      static_cast<const unsigned char*>(a.valid),
+      static_cast<const float*>(a.noise),
+      static_cast<const unsigned char*>(a.lane_mask), a.cp, a.W, a.C,
+      static_cast<int*>(a.out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,32 @@
-"""Blockwise (flash) attention: the hand-written CUDA kernel's wrapper.
+"""Blockwise (flash) attention: the hand-written CUDA kernels' wrapper.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py`` (``_flash_kernel``,
-wrapper ``flash_attention``). The kernel is ``csrc/flash_attention.cu``:
-online-softmax attention over tiles of keys with float32 running max,
-denominator and accumulator, causal tiles above the diagonal skipped, GQA by
-mapping query head ``h`` to kv head ``h // (H / Hkv)`` (no K/V
-replication), output in q's dtype.
+wrapper ``flash_attention``). Both bodies in ``csrc/flash_attention.cu``
+compute what it computes: online-softmax attention over tiles of keys with
+float32 running max, denominator and accumulator, causal tiles above the
+diagonal skipped, GQA by mapping query head ``h`` to kv head
+``h // (H / Hkv)`` (no K/V replication), output in q's dtype. Both read
+their inputs in place through strides, so the model's ``(B, S, H, d)``
+layout costs no copy, and take any S (the tail tile is masked).
 
 What bounds it on an H100: bytes (at the prefill shape (64, 9, 128, 64)
-bf16, ~25 MB moved against ~1.2 GFLOP). The first design is the simple,
-right one — CUDA cores, one CTA per (batch*head, 32 query rows), one K/V
-tile in shared memory at a time — and reads its inputs in place through
-strides, so the model's ``(B, S, H, d)`` layout costs no copy.
+bf16, ~25 MB moved against ~1.2 GFLOP). ``body_for(dtype, d)`` picks the
+body, from the dtype and head dim alone:
 
-Unlike the TPU kernel it needs no padding: any S (the tail tile is masked)
-and any head dim up to 256. ``flash_attention_plain``
+- ``"tensor_cores"`` — bf16 at a head dim with a compiled instance
+  (``TC_HEAD_DIMS``): FlashAttention-2's structure on ``mma.sync``
+  m16n8k16 bf16 with float32 accumulators, K/V double-buffered by
+  ``cp.async``; the one rounding the TPU kernel does not have is P in bf16
+  before P·V. Its inputs' and output's rows must start on 16 bytes;
+- ``"cuda_cores"`` — every other case (float32 at any d ≤ 256, bf16 at
+  another d): float32 products on the CUDA cores, the exact path float32
+  needs.
+
+Each body counts its launches in ``flash_attention.launches_by_body``;
+``flash_attention.launches`` counts both. ``flash_attention_plain``
 (``kernels.ref.flash_attention``) is the plain PyTorch version;
-``kernels.ops.flash_attention`` chooses between the two by where the
-tensors lie.
+``kernels.ops.flash_attention`` chooses between it and the kernels by where
+the tensors lie.
 """
 
 from __future__ import annotations
@@ -30,23 +39,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention as flash_attention_plain  # noqa: F401
 
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (32, 64, 80, 96, 128)   # csrc/flash_attention.cu: instances
+BODIES = ("tensor_cores", "cuda_cores")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_launch = {"tensor_cores": _build.Launcher("repro_flash_attention_tc"),
+           "cuda_cores": _build.Launcher("repro_flash_attention")}
 
 
-def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
-    if t.stride(3) != 1:
-        raise ValueError(
-            f"flash_attention: {name} must be contiguous in its last axis")
-    return t.stride(0), t.stride(1), t.stride(2)
+def body_for(dtype: torch.dtype, d: int) -> str:
+    """Which kernel body runs attention of this dtype and head dim."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: float | None = None,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """q: (B, H, S, d); k/v: (B, Hkv, S, d), ``H % Hkv == 0``; all on one
-    CUDA device, one dtype (float32 or bfloat16), last axis contiguous (the
-    other axes may be strided views). Returns (B, H, S, d) in q's dtype —
-    a fresh tensor, or ``out`` (any strides with a contiguous last axis)."""
+def _refuse(q, k, v, out) -> None:
+    """Raise the error for arguments the kernels do not take."""
     if not q.is_cuda:
         raise ValueError(
             "flash_attention: the kernel takes CUDA tensors; for CPU tensors "
@@ -69,27 +77,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k, v on different devices")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
-    if out is None:
-        out = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
-    elif (tuple(out.shape) != (B, H, S, d) or out.dtype != q.dtype
-          or out.device != q.device):
+    if out is not None and (tuple(out.shape) != (B, H, S, d)
+                            or out.dtype != q.dtype or out.device != q.device):
         raise ValueError("flash_attention: out does not match q")
-    strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
-               *_strides(out, "out"))
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t is not None and t.stride(3) != 1:
+            raise ValueError(
+                f"flash_attention: {name} must be contiguous in its last axis")
+    raise ValueError("flash_attention: arguments not taken by the kernel")
 
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Hkv, S, d, float(scale), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], *strides, stream)
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: float | None = None,
+                    out: torch.Tensor | None = None,
+                    layout: str = "bhsd") -> torch.Tensor:
+    """layout ``"bhsd"``: q (B, H, S, d), k/v (B, Hkv, S, d); ``"bshd"``
+    (the models'): q (B, S, H, d), k/v (B, S, Hkv, d). ``H % Hkv == 0``;
+    all on the current CUDA device, one dtype (float32 or bfloat16), last
+    axis contiguous (the other axes may be strided views). Returns the
+    attention in q's layout and dtype — a fresh contiguous tensor, or
+    ``out`` (any strides with a contiguous last axis)."""
+    if layout == "bhsd":
+        ax_h, ax_s = 1, 2
+    elif layout == "bshd":
+        ax_h, ax_s = 2, 1
+    else:
+        raise ValueError(f"flash_attention: unknown layout {layout!r}")
+    dt = _DTYPE_CODE.get(q.dtype)
+    ok = (q.is_cuda and q.dim() == 4 and k.dim() == 4 and dt is not None
+          and k.dtype == q.dtype and v.dtype == q.dtype)
+    if ok:
+        B, H, S, d = q.shape[0], q.shape[ax_h], q.shape[ax_s], q.shape[3]
+        Hkv = k.shape[ax_h]
+        dev = q.get_device()
+        ok = (k.shape[0] == B and k.shape[ax_s] == S and k.shape[3] == d
+              and v.shape == k.shape and Hkv > 0 and H % Hkv == 0
+              and d <= MAX_HEAD_DIM
+              and k.get_device() == dev and v.get_device() == dev
+              and q.stride(3) == 1 and k.stride(3) == 1 and v.stride(3) == 1
+              and (out is None or (out.shape == q.shape
+                                   and out.dtype == q.dtype
+                                   and out.get_device() == dev
+                                   and out.stride(3) == 1)))
+    if not ok:   # one condition; the message only on failure
+        if layout == "bshd":
+            q, k, v, out = (None if t is None else t.transpose(1, 2)
+                            for t in (q, k, v, out))
+        _refuse(q, k, v, out)
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
+    strides = (qs[0], qs[ax_h], qs[ax_s], ks[0], ks[ax_h], ks[ax_s],
+               vs[0], vs[ax_h], vs[ax_s], os_[0], os_[ax_h], os_[ax_s])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    body = body_for(q.dtype, d)
+    if body == "tensor_cores" and (
+            (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
+            or (qs[0] | qs[1] | qs[2] | ks[0] | ks[1] | ks[2] | vs[0] | vs[1]
+                | vs[2] | os_[0] | os_[1] | os_[2]) & 7):
+        raise ValueError(
+            "flash_attention: the bf16 tensor-core body copies whole 16-byte "
+            "rows: q, k, v and out must start on 16 bytes and their batch, "
+            "head and sequence strides be multiples of 8 elements")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    launch = _launch[body]
+    err = launch.call(launch.pack(
+        *ptrs, B, H, Hkv, S, d, scale, 1 if causal else 0, dt, *strides,
+        _build.stream_on(dev)))
     if err != 0:
         raise RuntimeError(
             f"flash_attention: kernel launch failed (CUDA error {err})")
     flash_attention.launches += 1
+    flash_attention.launches_by_body[body] += 1
     return out
 
 
 flash_attention.launches = 0  # kernel launches made by this wrapper
+flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)

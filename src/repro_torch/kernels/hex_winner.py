@@ -26,21 +26,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import hex_winner as hex_winner_plain  # noqa: F401
 
 MAX_SIZE = 25  # csrc/hex_winner.cu: kMaxCells == 625
+_launch = _build.Launcher("repro_hex_winner")
 
 
-def hex_winner(boards: torch.Tensor, size: int) -> torch.Tensor:
-    """boards: (W, size*size) int8 FILLED boards on a CUDA device. Returns
-    (W,) int8 winners in {1, 2}.
-
-    Same contract as ``repro_torch.core.hex.winner``: boards must be
-    completely filled (the Hex-theorem single connectivity check is only a
-    winner check on terminal boards). Launches on the current stream.
-    """
-    # the round budget is owned by core.hex (function-level import: kernels
-    # must not depend on core at module scope) so kernel and plain paths
-    # can never drift apart
-    from repro_torch.core.hex import doubling_rounds
-
+def _refuse(boards, size: int) -> None:
+    """Raise the error for arguments the kernel does not take."""
     if not isinstance(boards, torch.Tensor) or not boards.is_cuda:
         raise ValueError(
             "hex_winner: the kernel takes a CUDA tensor; for CPU tensors call "
@@ -55,17 +45,32 @@ def hex_winner(boards: torch.Tensor, size: int) -> torch.Tensor:
         raise ValueError(f"hex_winner: size {size} outside 1..{MAX_SIZE}")
     if not boards.is_contiguous():
         raise ValueError("hex_winner: boards must be contiguous")
-    W = boards.shape[0]
-    if W == 0:
-        raise ValueError("hex_winner: empty batch")
+    raise ValueError("hex_winner: empty batch")
 
-    lib = _build.load()
+
+def hex_winner(boards: torch.Tensor, size: int) -> torch.Tensor:
+    """boards: (W, size*size) int8 FILLED boards on the current CUDA device.
+    Returns (W,) int8 winners in {1, 2}.
+
+    Same contract as ``repro_torch.core.hex.winner``: boards must be
+    completely filled (the Hex-theorem single connectivity check is only a
+    winner check on terminal boards). Launches on the current stream.
+    """
+    # the round budget is owned by core.hex (function-level import: kernels
+    # must not depend on core at module scope) so kernel and plain paths
+    # can never drift apart
+    from repro_torch.core.hex import doubling_rounds
+
+    if not (isinstance(boards, torch.Tensor) and boards.is_cuda
+            and boards.dtype == torch.int8 and boards.dim() == 2
+            and boards.shape[1] == size * size and 1 <= size <= MAX_SIZE
+            and boards.is_contiguous() and boards.shape[0] > 0):
+        _refuse(boards, size)   # one condition; the message only on failure
+    W = boards.shape[0]
     out = torch.empty((W,), dtype=torch.int8, device=boards.device)
-    with torch.cuda.device(boards.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_hex_winner(boards.data_ptr(), W, size,
-                                   doubling_rounds(size * size),
-                                   out.data_ptr(), stream)
+    err = _launch.call(_launch.pack(
+        boards.data_ptr(), W, size, doubling_rounds(size * size),
+        out.data_ptr(), _build.stream_on(boards.get_device())))
     if err != 0:
         raise RuntimeError(f"hex_winner: kernel launch failed (CUDA error {err})")
     hex_winner.launches += 1

@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import contextlib
 
-import torch
-
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hex_winner as _hw
 from repro_torch.kernels import ref as _ref
@@ -69,22 +67,17 @@ def hex_winner(boards, size: int):
 def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
                     layout: str = "bshd"):
     """Flash attention. layout ``"bshd"`` (the models': q (B, S, H, d), k/v
-    (B, S, Hkv, d)) or ``"bhsd"`` (the kernel's own). On the card the
-    ``bshd`` tensors are handed to the kernel as strided views and its
-    output is written straight into a (B, S, H, d) buffer: no copies."""
+    (B, S, Hkv, d)) or ``"bhsd"``. On the card the kernel reads either
+    layout in place through strides and writes its output in q's layout:
+    no copies."""
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"flash_attention: unknown layout {layout!r}")
+    if q.is_cuda and not _force_plain:
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   layout=layout)
     bshd = layout == "bshd"
     if bshd:
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    if q.is_cuda and not _force_plain:
-        if not bshd:
-            return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
-        B, H, S, d = q.shape
-        out = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
-        _fa.flash_attention(q, k, v, causal=causal, scale=scale,
-                            out=out.transpose(1, 2))
-        return out
     out = _ref.flash_attention(q, k, v, causal=causal, scale=scale)
     return out.transpose(1, 2) if bshd else out
 

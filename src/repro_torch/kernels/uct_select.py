@@ -31,6 +31,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import uct_select as uct_select_plain  # noqa: F401
 
 BIG = 1e30
+_launch = _build.Launcher("repro_uct_select")
+
+
+def _fits(t, shape, dtype, device: int) -> bool:
+    return (isinstance(t, torch.Tensor) and t.dtype == dtype
+            and t.shape == shape and t.get_device() == device
+            and t.is_contiguous())
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -48,17 +55,9 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"uct_select: {name} must be contiguous")
 
 
-def uct_select(wins: torch.Tensor, visits: torch.Tensor, vloss: torch.Tensor,
-               parent_total: torch.Tensor, valid: torch.Tensor, cp,
-               noise: torch.Tensor | None = None,
-               lane_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """wins/visits/vloss/noise: (W, C) f32; valid: (W, C) bool;
-    parent_total: (W,) f32; lane_mask: (W,) bool. Returns (W,) int32.
-
-    Launches the CUDA kernel on the current stream; the tensors must lie on
-    a CUDA device. ``lane_mask`` marks live lanes; a False row is fully
-    invalid and deterministically selects slot 0.
-    """
+def _refuse(wins, visits, vloss, parent_total, valid, noise,
+            lane_mask) -> None:
+    """Raise the error for arguments the kernel does not take."""
     if not wins.is_cuda:
         raise ValueError(
             "uct_select: the kernel takes CUDA tensors; for CPU tensors call "
@@ -77,17 +76,41 @@ def uct_select(wins: torch.Tensor, visits: torch.Tensor, vloss: torch.Tensor,
         _check("noise", noise, (W, C), f32, dev)
     if lane_mask is not None:
         _check("lane_mask", lane_mask, (W,), b8, dev)
+    raise ValueError("uct_select: arguments not taken by the kernel")
 
-    lib = _build.load()
-    out = torch.empty((W,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_uct_select(
-            wins.data_ptr(), visits.data_ptr(), vloss.data_ptr(),
-            parent_total.data_ptr(), valid.data_ptr(),
-            None if noise is None else noise.data_ptr(),
-            None if lane_mask is None else lane_mask.data_ptr(),
-            float(cp), W, C, out.data_ptr(), stream)
+
+def uct_select(wins: torch.Tensor, visits: torch.Tensor, vloss: torch.Tensor,
+               parent_total: torch.Tensor, valid: torch.Tensor, cp,
+               noise: torch.Tensor | None = None,
+               lane_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """wins/visits/vloss/noise: (W, C) f32; valid: (W, C) bool;
+    parent_total: (W,) f32; lane_mask: (W,) bool. Returns (W,) int32.
+
+    Launches the CUDA kernel on the current stream; the tensors must lie on
+    the current CUDA device. ``lane_mask`` marks live lanes; a False row is
+    fully invalid and deterministically selects slot 0.
+    """
+    f32, b8 = torch.float32, torch.bool
+    ok = wins.is_cuda and wins.dim() == 2
+    if ok:
+        tile, dev = wins.shape, wins.get_device()
+        row = tile[:1]
+        ok = (_fits(wins, tile, f32, dev) and _fits(visits, tile, f32, dev)
+              and _fits(vloss, tile, f32, dev)
+              and _fits(parent_total, row, f32, dev)
+              and _fits(valid, tile, b8, dev)
+              and (noise is None or _fits(noise, tile, f32, dev))
+              and (lane_mask is None or _fits(lane_mask, row, b8, dev)))
+    if not ok:   # one condition; the message only on failure
+        _refuse(wins, visits, vloss, parent_total, valid, noise, lane_mask)
+    W, C = tile
+    out = torch.empty((W,), dtype=torch.int32, device=wins.device)
+    err = _launch.call(_launch.pack(
+        wins.data_ptr(), visits.data_ptr(), vloss.data_ptr(),
+        parent_total.data_ptr(), valid.data_ptr(),
+        0 if noise is None else noise.data_ptr(),
+        0 if lane_mask is None else lane_mask.data_ptr(),
+        float(cp), W, C, out.data_ptr(), _build.stream_on(dev)))
     if err != 0:
         raise RuntimeError(f"uct_select: kernel launch failed (CUDA error {err})")
     uct_select.launches += 1

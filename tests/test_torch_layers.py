@@ -10,6 +10,7 @@ differently).
 """
 
 import dataclasses
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 from repro_torch import convert
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import hex_winner as thw
+from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import uct_select as tus
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import layers as tlayers
@@ -88,6 +94,71 @@ def test_rmsnorm_orders_round_differently_in_bf16():
     assert not torch.equal(kb, mb)
     with pytest.raises(ValueError):
         tref.rmsnorm(x, w, order="other")
+
+
+def test_rmsnorm_kernel_wrapper_refuses_cpu_tensors():
+    """On CPU tensors the kernel wrapper raises before any build or launch;
+    the dispatch point takes the plain version."""
+    x = torch.zeros(4, 576, dtype=torch.bfloat16)
+    w = torch.ones(576)
+    before = trn.rmsnorm.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm(x, w, order="model")
+    assert trn.rmsnorm.launches == before
+    assert _build._lib is None
+    assert torch.equal(tops.rmsnorm(x, w, order="model"),
+                       tref.rmsnorm(x, w, order="model"))
+    assert trn.rmsnorm_plain is tref.rmsnorm
+
+
+def test_host_prelude_refuses_cpu_tensors():
+    """The one prelude the four wrappers share gives no stream for a CPU
+    tensor, and every wrapper refuses CPU tensors with the same message
+    it gave before the prelude was shared."""
+    with pytest.raises(ValueError, match="CPU"):
+        _build.stream_on(torch.zeros(1).get_device())
+    z = torch.zeros(8, 25)
+    calls = [
+        lambda: tus.uct_select(z, z, z, z[:, 0].contiguous(), z > 0, 1.0),
+        lambda: thw.hex_winner(torch.ones(4, 25, dtype=torch.int8), 5),
+        lambda: tfa.flash_attention(*(torch.zeros(1, 2, 8, 64),) * 3),
+        lambda: trn.rmsnorm(z, torch.ones(25)),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _build._lib is None
+
+
+# one call's arguments for each entry point, as its wrapper packs them
+# (pointers near the top of a 48-bit address space)
+P = 0x7F00_0000_1230
+LAUNCH_ARGS = {
+    "repro_uct_select": (P, P, P, P, P, 0, 0, 1.0, 256, 121, P, P),
+    "repro_hex_winner": (P, 256, 11, 9, P, P),
+    "repro_flash_attention": (P, P, P, P, 64, 9, 3, 128, 64, 0.125, 1, 0,
+                              *range(12), P),
+    "repro_flash_attention_tc": (P, P, P, P, 64, 9, 3, 128, 64, 0.125, 1, 1,
+                                 *range(12), P),
+    "repro_rmsnorm": (P, P, P, 64, 576, 1e-5, 1, 1, 1, P),
+}
+# sizeof the C structs with 8-byte pointers and long longs, 4-byte int and
+# float, each field at its natural alignment (what load() checks on the
+# card against <entry>_args_bytes())
+C_STRUCT_BYTES = {"repro_uct_select": 88, "repro_hex_winner": 40,
+                  "repro_flash_attention": 168, "repro_flash_attention_tc": 168,
+                  "repro_rmsnorm": 56}
+
+
+@pytest.mark.parametrize("name", sorted(_build.ARGS))
+def test_launcher_packs_the_c_struct(name):
+    fmt = _build.ARGS[name]
+    assert struct.calcsize(fmt) == C_STRUCT_BYTES[name]
+    packed = struct.pack(fmt, *LAUNCH_ARGS[name])
+    assert len(packed) == C_STRUCT_BYTES[name]
+    assert struct.unpack(fmt, packed)[0] == P
+    launcher = _build.Launcher(name)   # resolves (and builds) at first call
+    assert launcher.call == launcher._first_call and _build._lib is None
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
