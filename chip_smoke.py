@@ -94,6 +94,14 @@ FLASH_CASES = [
     (1, 2, 1, 1, 64), (2, 4, 4, 37, 32), (2, 9, 3, 1024, 64),
     (2, 8, 2, 200, 128), (1, 8, 2, 1024, 128), (2, 4, 2, 300, 96),
     (2, 2, 1, 77, 48)]
+# check_rmsnorm's shapes (D, N), each in float32 and bfloat16 with a
+# float32 and a bfloat16 weight, both orders: D = 576, 1024 and an odd D
+# (element loads) at 64, 8192 and 7 rows; then the launcher's other
+# branches: more rows than the grid holds (each warp strides over rows),
+# and rows too long for the registers (the two-pass body: D = 2560 float32,
+# D = 1025 with element loads, D = 4104 in either dtype)
+RMSNORM_CASES = [(D, N) for D in (576, 1024, 577) for N in (64, 64 * 128, 7)
+                 ] + [(576, 2 * 8192 + 7), (2560, 7), (1025, 7), (4104, 7)]
 RMSNORM_F32_TOL = 1e-5
 RMSNORM_BF16_SHARE = 1e-3
 RMSNORM_BF16_STEPS = {"kernel": 1, "model": 2}
@@ -657,56 +665,58 @@ def bf16_steps(torch, a, b):
 
 
 def check_rmsnorm(torch):
-    """The rmsnorm kernel against its plain version on the card, both
-    rounding orders, D = 576, 1024 and an odd D, float32 and bfloat16 (see
+    """The rmsnorm kernel against its plain version on the card at every
+    shape of RMSNORM_CASES, both rounding orders, float32 and bfloat16 (see
     RMSNORM_* for the limits)."""
     from repro_torch.kernels import ref, rmsnorm as rn
     worst = {"float32": 0.0, "bfloat16": 0.0}
     share = steps = 0.0
+    share_case = None
     other_share = 1.0
     n = 0
-    for D in (576, 1024, 577):
-        for N in (64, 64 * 128, 7):
-            for dt in (torch.float32, torch.bfloat16):
-                for wdt in (torch.float32, torch.bfloat16):
-                    for order in ("kernel", "model"):
-                        g = torch.Generator(device="cuda").manual_seed(D + N)
-                        x = (3 * torch.randn(N, D, generator=g,
-                                             device="cuda")).to(dt)
-                        w = (1 + 0.1 * torch.randn(D, generator=g,
-                                                   device="cuda")).to(wdt)
-                        got = rn.rmsnorm(x, w, 1e-5, order=order)
-                        want = ref.rmsnorm(x, w, 1e-5, order=order)
-                        torch.cuda.synchronize()
-                        name = "float32" if dt == torch.float32 else "bfloat16"
-                        case = f"rmsnorm D={D} N={N} {name} w {wdt} {order}"
-                        err = float((got.float() - want.float()).abs().max())
-                        check(got.dtype == dt and got.shape == x.shape,
-                              "rmsnorm: wrong output type or shape")
-                        worst[name] = max(worst[name], err)
-                        n += 1
-                        if dt == torch.float32:
-                            tol = RMSNORM_F32_TOL
-                            check(torch.allclose(got, want, atol=tol,
-                                                 rtol=tol),
-                                  f"{case}: max abs err {err} above {tol}")
-                            continue
-                        apart = bf16_steps(torch, got, want)
-                        s = float((apart > 0).float().mean())
-                        check(s <= RMSNORM_BF16_SHARE
-                              and int(apart.max()) <= RMSNORM_BF16_STEPS[order],
-                              f"{case}: {s:.4%} of elements differ, up to "
-                              f"{int(apart.max())} bf16 steps")
-                        share, steps = max(share, s), max(steps, int(apart.max()))
-                        # a kernel with the other order would fail the limit
-                        wrong = ref.rmsnorm(x, w, 1e-5, order={
-                            "kernel": "model", "model": "kernel"}[order])
-                        o = float((bf16_steps(torch, wrong, want) > 0)
-                                  .float().mean())
-                        check(o > RMSNORM_BF16_SHARE,
-                              f"{case}: the other order's output passes the "
-                              f"limit ({o:.4%} of elements differ)")
-                        other_share = min(other_share, o)
+    for D, N in RMSNORM_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            for wdt in (torch.float32, torch.bfloat16):
+                for order in ("kernel", "model"):
+                    g = torch.Generator(device="cuda").manual_seed(D + N)
+                    x = (3 * torch.randn(N, D, generator=g,
+                                         device="cuda")).to(dt)
+                    w = (1 + 0.1 * torch.randn(D, generator=g,
+                                               device="cuda")).to(wdt)
+                    got = rn.rmsnorm(x, w, 1e-5, order=order)
+                    want = ref.rmsnorm(x, w, 1e-5, order=order)
+                    torch.cuda.synchronize()
+                    name = "float32" if dt == torch.float32 else "bfloat16"
+                    case = f"rmsnorm D={D} N={N} {name} w {wdt} {order}"
+                    err = float((got.float() - want.float()).abs().max())
+                    check(got.dtype == dt and got.shape == x.shape,
+                          "rmsnorm: wrong output type or shape")
+                    worst[name] = max(worst[name], err)
+                    n += 1
+                    if dt == torch.float32:
+                        tol = RMSNORM_F32_TOL
+                        check(torch.allclose(got, want, atol=tol,
+                                             rtol=tol),
+                              f"{case}: max abs err {err} above {tol}")
+                        continue
+                    apart = bf16_steps(torch, got, want)
+                    s = float((apart > 0).float().mean())
+                    check(s <= RMSNORM_BF16_SHARE
+                          and int(apart.max()) <= RMSNORM_BF16_STEPS[order],
+                          f"{case}: {s:.4%} of elements differ, up to "
+                          f"{int(apart.max())} bf16 steps")
+                    if s > share:
+                        share, share_case = s, case
+                    steps = max(steps, int(apart.max()))
+                    # a kernel with the other order would fail the limit
+                    wrong = ref.rmsnorm(x, w, 1e-5, order={
+                        "kernel": "model", "model": "kernel"}[order])
+                    o = float((bf16_steps(torch, wrong, want) > 0)
+                              .float().mean())
+                    check(o > RMSNORM_BF16_SHARE,
+                          f"{case}: the other order's output passes the "
+                          f"limit ({o:.4%} of elements differ)")
+                    other_share = min(other_share, o)
     return {"cases": n, "max_abs_err": worst,
             "tolerance": {
                 "float32": f"allclose, atol = rtol = {RMSNORM_F32_TOL}",
@@ -716,6 +726,7 @@ def check_rmsnorm(torch):
                             f"or {RMSNORM_BF16_STEPS['model']} ('model') bf16 "
                             "steps"},
             "bfloat16_share_differing_max": share,
+            "bfloat16_share_differing_max_case": share_case,
             "bfloat16_steps_max": steps,
             "other_order_share_differing_min": other_share}
 
@@ -785,15 +796,14 @@ def phase_lm_kernels(torch):
     cuda_cores = {"dtype": "float32", "ms": time_ms(f32_call, iters=50),
                   "in_graph_ms": graph_ms(f32_call, launches=10),
                   "bound_ms": f32_bound, "bound_by": f32_by}
-    tc_smem = 2 * (64 + 4 * 64) * (d + 8)   # Q and two K/V stages, bf16
-    blocks_per_sm = _build.load().repro_flash_attention_tc_blocks_per_sm(d)
+    lib = _build.load()
+    blocks_per_sm = lib.repro_flash_attention_tc_blocks_per_sm(d)
     tensor_cores = {
         "dtype": "bfloat16", "ms": fa_ms, "in_graph_ms": fa_graph,
         "bound_ms": fa_bound, "bound_by": fa_by,
         "achieved_bytes_per_s": fa_bytes / (fa_graph * 1e-3),
-        "ctas": B * H * -(-S // 64), "dynamic_smem_bytes": tc_smem,
-        "ctas_per_sm": blocks_per_sm,
-        "occupancy_warps_per_sm": 4 * blocks_per_sm}
+        "dynamic_smem_bytes": lib.repro_flash_attention_tc_smem_bytes(d),
+        "ctas_per_sm": blocks_per_sm}
 
     N, D = LM_DECODE_NORM_SHAPE
     x = torch.randn(N, 1, D, generator=g, device="cuda").to(bf)
@@ -846,7 +856,7 @@ def phase_lm_kernels(torch):
          "bound_ms": rn_bound, "bound_by": rn_by, "library_ms": rn_lib,
          "library_in_graph_ms": rn_lib_graph,
          "library_call": "torch.nn.functional.rms_norm",
-         "host_us": rn_host, "dynamic_smem_bytes": 4 * D,
+         "host_us": rn_host,
          "prefill_shape": [B, S, D], "prefill_in_graph_ms": rn_prefill_graph,
          "prefill_bound_ms": rn_prefill_bound,
          "prefill_library_in_graph_ms": rn_prefill_lib_graph},

@@ -198,8 +198,10 @@ def load() -> ctypes.PyDLL:
                 f"format {fmt!r} {struct.calcsize(fmt)}")
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_int
-    occupancy = lib.repro_flash_attention_tc_blocks_per_sm
-    occupancy.argtypes, occupancy.restype = [ctypes.c_int], ctypes.c_int
+    for name in ("repro_flash_attention_tc_blocks_per_sm",
+                 "repro_flash_attention_tc_smem_bytes"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     _lib = lib
     return lib
 

@@ -596,6 +596,24 @@ extern "C" int repro_flash_attention_tc_blocks_per_sm(int D) {
   return err == cudaSuccess ? n : -1;
 }
 
+// Dynamic shared memory of one CTA of the tensor-core body at head dim D,
+// in bytes, or -1 for a D without an instance.
+extern "C" int repro_flash_attention_tc_smem_bytes(int D) {
+  switch (D) {
+    case 32:
+      return static_cast<int>(tc::smem_bytes<32>());
+    case 64:
+      return static_cast<int>(tc::smem_bytes<64>());
+    case 80:
+      return static_cast<int>(tc::smem_bytes<80>());
+    case 96:
+      return static_cast<int>(tc::smem_bytes<96>());
+    case 128:
+      return static_cast<int>(tc::smem_bytes<128>());
+  }
+  return -1;
+}
+
 // The tensor-core body: bfloat16, head dim 32, 64, 80, 96 or 128, every
 // row of q, k, v and o starting on 16 bytes.
 extern "C" int repro_flash_attention_tc(const void* packed) {

@@ -17,7 +17,7 @@ body, from the dtype and head dim alone:
   (``TC_HEAD_DIMS``): FlashAttention-2's structure on ``mma.sync``
   m16n8k16 bf16 with float32 accumulators, K/V double-buffered by
   ``cp.async``; the one rounding the TPU kernel does not have is P in bf16
-  before P·V. Its inputs' and output's rows must start on 16 bytes;
+  before P·V. The rows of q, k and v must start on 16 bytes;
 - ``"cuda_cores"`` — every other case (float32 at any d ≤ 256, bf16 at
   another d): float32 products on the CUDA cores, the exact path float32
   needs.
@@ -53,7 +53,7 @@ def body_for(dtype: torch.dtype, d: int) -> str:
     return "cuda_cores"
 
 
-def _refuse(q, k, v, out) -> None:
+def _refuse(q, k, v) -> None:
     """Raise the error for arguments the kernels do not take."""
     if not q.is_cuda:
         raise ValueError(
@@ -77,11 +77,8 @@ def _refuse(q, k, v, out) -> None:
         raise ValueError("flash_attention: q, k, v on different devices")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
-    if out is not None and (tuple(out.shape) != (B, H, S, d)
-                            or out.dtype != q.dtype or out.device != q.device):
-        raise ValueError("flash_attention: out does not match q")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t is not None and t.stride(3) != 1:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
             raise ValueError(
                 f"flash_attention: {name} must be contiguous in its last axis")
     raise ValueError("flash_attention: arguments not taken by the kernel")
@@ -89,14 +86,12 @@ def _refuse(q, k, v, out) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: float | None = None,
-                    out: torch.Tensor | None = None,
                     layout: str = "bhsd") -> torch.Tensor:
     """layout ``"bhsd"``: q (B, H, S, d), k/v (B, Hkv, S, d); ``"bshd"``
     (the models'): q (B, S, H, d), k/v (B, S, Hkv, d). ``H % Hkv == 0``;
     all on the current CUDA device, one dtype (float32 or bfloat16), last
     axis contiguous (the other axes may be strided views). Returns the
-    attention in q's layout and dtype — a fresh contiguous tensor, or
-    ``out`` (any strides with a contiguous last axis)."""
+    attention in q's layout and dtype, a fresh contiguous tensor."""
     if layout == "bhsd":
         ax_h, ax_s = 1, 2
     elif layout == "bshd":
@@ -114,31 +109,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               and v.shape == k.shape and Hkv > 0 and H % Hkv == 0
               and d <= MAX_HEAD_DIM
               and k.get_device() == dev and v.get_device() == dev
-              and q.stride(3) == 1 and k.stride(3) == 1 and v.stride(3) == 1
-              and (out is None or (out.shape == q.shape
-                                   and out.dtype == q.dtype
-                                   and out.get_device() == dev
-                                   and out.stride(3) == 1)))
+              and q.stride(3) == 1 and k.stride(3) == 1
+              and v.stride(3) == 1)
     if not ok:   # one condition; the message only on failure
         if layout == "bshd":
-            q, k, v, out = (None if t is None else t.transpose(1, 2)
-                            for t in (q, k, v, out))
-        _refuse(q, k, v, out)
-    if out is None:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        _refuse(q, k, v)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
     strides = (qs[0], qs[ax_h], qs[ax_s], ks[0], ks[ax_h], ks[ax_s],
                vs[0], vs[ax_h], vs[ax_s], os_[0], os_[ax_h], os_[ax_s])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     body = body_for(q.dtype, d)
     if body == "tensor_cores" and (
-            (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
+            (ptrs[0] | ptrs[1] | ptrs[2]) & 15
             or (qs[0] | qs[1] | qs[2] | ks[0] | ks[1] | ks[2] | vs[0] | vs[1]
-                | vs[2] | os_[0] | os_[1] | os_[2]) & 7):
+                | vs[2]) & 7):
         raise ValueError(
             "flash_attention: the bf16 tensor-core body copies whole 16-byte "
-            "rows: q, k, v and out must start on 16 bytes and their batch, "
-            "head and sequence strides be multiples of 8 elements")
+            "rows: q, k and v must start on 16 bytes and their batch, head "
+            "and sequence strides be multiples of 8 elements")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     launch = _launch[body]
     err = launch.call(launch.pack(

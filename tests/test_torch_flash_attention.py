@@ -174,12 +174,14 @@ def test_tc_shapes_cover_the_card_checks():
 @pytest.mark.parametrize("shape", TC_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_tc_body_rounding_within_bf16_tolerance(shape, causal):
     """P in bf16 keeps the tensor-core body within FLASH_TOL["bfloat16"]
-    of the plain version (float32 softmax and products)."""
-    (_, qt), (_, kt), (_, vt) = qkv(*shape, "bfloat16", seed=sum(shape))
+    of the JAX package's reference and of the port's plain version (both
+    float32 softmax and products) on the same inputs."""
+    (qj, qt), (kj, kt), (vj, vt) = qkv(*shape, "bfloat16", seed=sum(shape))
     got = tc_body_emulation(qt, kt, vt, causal=causal)
-    want = tref.flash_attention(qt, kt, vt, causal=causal)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
-    close(got, want.float().numpy(), "bfloat16")
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    close(got, jref.flash_attention(qj, kj, vj, causal=causal), "bfloat16")
+    close(got, tref.flash_attention(qt, kt, vt, causal=causal).float().numpy(),
+          "bfloat16")
 
 
 @pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
