@@ -7,13 +7,18 @@ Run from the root of a checkout, with no arguments:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (printing ``ptxas``'s registers, shared memory and spill bytes
-for each), holds each against its plain PyTorch version on the card — both
-bodies of ``flash_attention``, the bf16 tensor-core one and the CUDA-core
-one — and drives the port's two paths:
+for each), holds each against its plain PyTorch version on the card — the
+Hex path's ``select_descent`` (a whole selection round in one launch) and
+``hex_playout`` (a whole playout in one launch), the one-tile
+``uct_select`` and ``hex_winner``, both bodies of ``flash_attention``, the
+bf16 tensor-core one and the CUDA-core one, and ``rmsnorm`` — and drives
+the port's two paths:
 
 - one full-width GSCPM Hex search (11x11, 256 lanes, the paper's 1,048,576
   playouts) through ``repro_torch.core.gscpm.gscpm_search``, checking among
-  other things that the same search run twice (at 65,536 playouts) gives
+  other things that it launches ``select_descent`` once per selection round
+  and ``hex_playout`` once per sync iteration (and the one-tile kernels
+  never), and that the same search run twice (at 65,536 playouts) gives
   bit-identical trees;
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
   weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 4
@@ -36,6 +41,7 @@ graph.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.metadata
 import json
 import os
@@ -62,6 +68,10 @@ FULL = dict(board_size=11, n_workers=256, n_tasks=1024, tree_cap=1 << 18,
 # run (`--playouts 65536`) for when the time limit is short
 PAPER_PLAYOUTS = 1_048_576
 SHORT_PLAYOUTS = 65_536
+# CUDA kernels one profiled Hex sync iteration may launch: the descent and
+# the playout are one launch each, the rest (threefry, proposal, expansion,
+# backup) ~500 eager ops
+MAX_KERNELS_PER_ITERATION = 800
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
 # 4 generated tokens, each from a GSCPM search of 1,024 playouts on 64 lanes
@@ -369,15 +379,216 @@ def check_hex_winner(torch):
     return {"boards": boards_checked, "mismatches": 0, "max_abs_err": 0}
 
 
+# threefry2x32: 2 + 20 x 5 + 5 x 3 + 2 integer operations a block; uniform
+# adds 4 (xor, shift, or, subtract); one UCT score is ~12 float operations
+THREEFRY_OPS = 119
+UNIFORM_OPS = THREEFRY_OPS + 4
+UCT_OPS = 12
+
+
+def grown_tree(torch, size, workers, playouts, cap, seed):
+    """The tree of a real search on the card (the kernels' path)."""
+    from repro_torch import rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    cfg = GSCPMConfig(board_size=size, n_workers=workers, n_tasks=workers * 4,
+                      n_playouts=playouts, tree_cap=cap)
+    board = cfg.game_obj.init_board("cuda")
+    tree, _ = gscpm_search(board, 1, cfg, rng.key(seed, "cuda"))
+    return tree, board
+
+
+def partly_filled(torch, size, empties, seed):
+    """A board of `size` with only `empties` empty cells, stones alternating
+    over a seeded random order of the others."""
+    n = size * size
+    g = torch.Generator().manual_seed(seed)
+    order = torch.randperm(n, generator=g)
+    board = torch.zeros(n, dtype=torch.int8)
+    stones = order[empties:]
+    board[stones] = (1 + torch.arange(stones.numel()) % 2).to(torch.int8)
+    return board.cuda()
+
+
+def descent_cases(torch):
+    """(name, tree, root board, game, lanes) for the descent check: trees of
+    real searches (11x11 at the main path's 256 lanes, 7x7), the same with
+    virtual loss on every node (the second round of vl_rounds = 2), trees
+    whose siblings score alike so the noise decides every pick (sizes 2, 5
+    and 11; at size 2 the depth cap stops the lanes, at 11 the filled
+    board), and held lanes (a root one child short of fully expanded)."""
+    from repro_torch import parity
+    from repro_torch.core.hex import HexGame
+    cases = []
+    t11, b11 = grown_tree(torch, 11, 256, SHORT_PLAYOUTS, 1 << 18, seed=3)
+    t7, b7 = grown_tree(torch, 7, 16, 8192, 1 << 14, seed=4)
+    for size, t, b, W in ((11, t11, b11, 256), (7, t7, b7, 16)):
+        name = f"search {size}x{size}"
+        cases.append((name, t, b, HexGame(size), W))
+        v = parity.clone_tree(t)
+        g = torch.Generator(device="cuda").manual_seed(W)
+        v.vloss.copy_(torch.randint(0, 3, v.vloss.shape, generator=g,
+                                    device="cuda").float())
+        v.vloss[v.cap] = 0.0
+        cases.append((name + ", virtual loss", v, b, HexGame(size), W))
+    for size, empties, levels, W in ((11, 5, 5, 256), (5, 6, 3, 16),
+                                     (2, 4, 4, 7)):
+        b = partly_filled(torch, size, empties, seed=size)
+        t = parity.equal_stat_tree(b, levels, 1, 1024, seed=size)
+        cases.append((f"equal stats {size}x{size}", t, b, HexGame(size), W))
+        held = parity.clone_tree(t)
+        held.n_children[0] -= 1
+        cases.append((f"held at the root {size}x{size}", held, b,
+                      HexGame(size), W))
+    return cases, (t11, b11)
+
+
+def check_select_descent(torch, cases):
+    """The descent kernel against its plain version (the level loop with
+    every dispatch plain) on every case, noise off and on, cp 1.0 and 0.35:
+    all five outputs equal, except lanes that part at a pick inside the tie
+    gap (0 < gap < TIE_GAP by the plain arithmetic), which are counted."""
+    from repro_torch import parity, rng
+    from repro_torch.kernels import ref, select_descent as sd
+    lanes = excused = noise_decided = 0
+    per_case = {}
+    for ci, (name, tree, board, game, W) in enumerate(cases):
+        keys = rng.split(rng.key(100 + ci, "cuda"), W)
+        paths_no_noise = None
+        for scale in (0.0, 1e-3):
+            for cp in (1.0, 0.35):
+                got = sd.select_descent(tree, board, keys, cp, scale,
+                                        game.max_moves + 1)
+                want = ref.select_descent(tree, board, game, cp, keys, scale)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    check(a.dtype == b.dtype and a.shape == b.shape,
+                          f"select_descent ({name}): output {a.dtype} "
+                          f"{tuple(a.shape)} != plain {b.dtype} {tuple(b.shape)}")
+                partings = parity.descent_partings(tree, got, want, cp, keys,
+                                                   scale)
+                bad = [p for p in partings if not p["excused"]]
+                check(not bad, f"select_descent ({name}, noise {scale}, cp "
+                               f"{cp}): parts from the plain version: {bad[:3]}")
+                excused += len(partings)
+                lanes += W
+                if cp == 1.0 and scale == 0.0:
+                    paths_no_noise = got[0]
+                elif cp == 1.0:
+                    noise_decided_here = int((got[0] != paths_no_noise)
+                                             .any(dim=1).sum())
+                    per_case[name] = {
+                        "lanes": W, "mean_depth": float(got[1].float().mean()),
+                        "max_depth": int(got[1].max()),
+                        "lanes_the_noise_moved": noise_decided_here}
+                    if name.startswith("equal stats"):
+                        noise_decided += noise_decided_here
+    check(noise_decided > 0, "select_descent: the noise decided no pick on "
+                             "the equal-stat trees")
+    return {"lanes": lanes, "mismatches": 0, "excused_tie_gap": excused,
+            "equal_stat_lanes_the_noise_moved": noise_decided,
+            "cases": per_case, "max_abs_err": 0}
+
+
+def playout_boards(torch, size):
+    """Leaf boards for the playout check: 256 random boards whose share of
+    empty cells runs from none to all, the adversarial filled boards, and
+    the same with a third of their cells emptied."""
+    n = size * size
+    g = torch.Generator(device="cuda").manual_seed(1000 + size)
+    stones = torch.randint(1, 3, (256, n), generator=g, device="cuda")
+    share = torch.linspace(0, 1, 256, device="cuda")[:, None]
+    empty = torch.rand((256, n), generator=g, device="cuda") < share
+    rand = torch.where(empty, 0, stones).to(torch.int8)
+    adv = adversarial_boards(torch, size)
+    holes = torch.rand(adv.shape, generator=g, device="cuda") < 1 / 3
+    return torch.cat([rand, adv, torch.where(holes, 0, adv).to(torch.int8)])
+
+
+def check_hex_playout(torch):
+    """The playout kernel against the plain fill + winner on the card:
+    filled boards equal bit for bit (through the kernel's optional filled
+    output), winners equal, also to the flood fill, and the search's call
+    (no filled output) gives the same winners."""
+    from repro_torch import rng
+    from repro_torch.core import hex as hx
+    from repro_torch.kernels import hex_playout as hp, ref
+    boards_checked = 0
+    for size in (2, 5, 7, 11, 13, 19):
+        boards = playout_boards(torch, size)
+        W = boards.shape[0]
+        g = torch.Generator(device="cuda").manual_seed(size)
+        to_move = torch.randint(1, 3, (W,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        keys = rng.split(rng.key(size, "cuda"), W)
+        got, filled = hp.hex_playout(boards, to_move, keys, size,
+                                     with_filled=True)
+        lean = hp.hex_playout(boards, to_move, keys, size)
+        torch.cuda.synchronize()
+        spec = hx.HexSpec(size)
+        want_filled = hx.random_fill_batch(boards, to_move, keys, spec)
+        want = ref.hex_winner(want_filled, size)
+        check(got.dtype == torch.int8 and got.shape == (W,)
+              and filled.dtype == torch.int8 and filled.shape == boards.shape,
+              "hex_playout: wrong output type or shape")
+        bad = int((filled != want_filled).any(dim=1).sum())
+        check(bad == 0, f"hex_playout size {size}: {bad} filled boards differ "
+                        "from the plain fill")
+        check(torch.equal(got, want), f"hex_playout size {size}: winners "
+                                      "differ from the plain version")
+        check(torch.equal(lean, got), f"hex_playout size {size}: the call "
+                                      "without filled output differs")
+        check(torch.equal(want, hx.winner_flood_batch(want_filled, spec)),
+              f"hex_playout size {size}: plain winner != flood fill")
+        boards_checked += W
+    return {"boards": boards_checked, "mismatches": 0, "max_abs_err": 0}
+
+
+def descent_work(torch, tree, paths, depths, n_root_empty, n, max_depth):
+    """(bytes, operations) one descent needs for these outputs: each tree
+    entry read once (per scored node its counters and its children's ids and
+    statistics, per path node its move), the root board and keys read once,
+    the outputs written once; per lane and level a fold_in and, per child,
+    a uniform and a score."""
+    W = depths.shape[0]
+    cols = torch.arange(paths.shape[1], device=paths.device)[None, :]
+    scored = torch.unique(paths[cols < depths[:, None]])
+    on_path = torch.unique(paths[(cols >= 1) & (cols <= depths[:, None])])
+    kids = tree.n_children[scored].long()
+    tree_bytes = int((16 + 16 * kids).sum()) + 4 * on_path.numel() + 4 * W
+    out_bytes = W * (4 * max_depth + 12 + n)
+    n_bytes = tree_bytes + n + 16 * W + out_bytes
+    levels = depths.long()
+    # children at level l of a lane: n_root_empty - l (a fully expanded node)
+    slots = int((levels * n_root_empty - levels * (levels - 1) // 2).sum())
+    n_ops = slots * (UNIFORM_OPS + UCT_OPS) + int(levels.sum()) * (
+        THREEFRY_OPS + 10)
+    return n_bytes, n_ops
+
+
+def playout_work(torch, boards, rounds):
+    """(bytes, operations) of W playouts: boards, movers and keys read
+    once, winners written once; per board n uniforms, E x E rank
+    comparisons among its E empty cells, and the labelling rounds."""
+    W, n = boards.shape
+    E = (boards == 0).sum(dim=1).long()
+    n_bytes = W * n + 4 * W + 16 * W + W
+    n_ops = W * n * UNIFORM_OPS + int((3 * E * E).sum()) + W * n * rounds * 20
+    return n_bytes, n_ops
+
+
 def phase_kernels(torch):
-    """Hold both kernels against their plain versions on the card, then time
-    them at the shapes the main path gives them."""
+    """Hold the game-search kernels (the descent and the playout, the
+    one-tile uct_select and hex_winner) against their plain versions on the
+    card, then time them at the shapes the main path gives them."""
     from repro_torch.core import hex as hx
     from repro_torch.core.hex import doubling_rounds
     from repro_torch.kernels import hex_winner as hw, ref, uct_select as us
 
     uct = check_uct_select(torch)
     hexw = check_hex_winner(torch)
+    cases, (t11, b11) = descent_cases(torch)
+    descent = check_select_descent(torch, cases)
+    playout = check_hex_playout(torch)
 
     W, C = FULL["n_workers"], FULL["board_size"] ** 2
     args, nz, lm = uct_case(torch, W, C, True, True, seed=1)
@@ -407,7 +618,60 @@ def phase_kernels(torch):
     hex_ops = W * C * doubling_rounds(C) * 20
     hex_bound = max(hex_bytes / HBM_BYTES_PER_S, hex_ops / OPS_PER_S) * 1e3
 
+    # the descent at the main path's shape: 256 lanes on the 11x11 tree of
+    # a 65,536-playout search, noise on, cp 1
+    from repro_torch import rng
+    from repro_torch.kernels import hex_playout as hp, select_descent as sd
+    game = hx.HexGame(size)
+    keys = rng.split(rng.key(7, "cuda"), W)
+    descent_call = lambda: sd.select_descent(t11, b11, keys, 1.0, 1e-3,
+                                             game.max_moves + 1)
+    paths, depths = descent_call()[:2]
+    sd_ms = time_ms(descent_call)
+    sd_graph = graph_ms(descent_call)
+    sd_plain = time_ms(lambda: ref.select_descent(t11, b11, game, 1.0, keys,
+                                                  1e-3), iters=10, warmup=2)
+    sd_bytes, sd_ops = descent_work(torch, t11, paths, depths, C, C,
+                                    game.max_moves + 1)
+    sd_bound, sd_by = bound_ms(sd_bytes, sd_ops, OPS_PER_S)
+
+    # the playout at the main path's shape: 256 leaf boards a few stones
+    # deep (the search's leaves lie 1-8 plies below the empty root)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    stones = torch.randint(1, 3, (W, C), generator=g, device="cuda")
+    deep = torch.rand((W, C), generator=g, device="cuda") < 4 / C
+    leaves = torch.where(deep, stones, 0).to(torch.int8)
+    movers = torch.randint(1, 3, (W,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    po_keys = rng.split(rng.key(9, "cuda"), W)
+    playout_call = lambda: hp.hex_playout(leaves, movers, po_keys, size)
+    hp_ms = time_ms(playout_call)
+    hp_graph = graph_ms(playout_call)
+    hp_plain = time_ms(lambda: ref.hex_playout(leaves, movers, po_keys, size),
+                       iters=10, warmup=2)
+    hp_bytes, hp_ops = playout_work(torch, leaves, doubling_rounds(C))
+    hp_bound, hp_by = bound_ms(hp_bytes, hp_ops, OPS_PER_S)
+
     records = [
+        {"name": "select_descent", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/uct_select.cu",
+         "replaces": "src/repro/kernels/uct_select.py:36",
+         "shape": [W, C], "checked": descent, "max_abs_err": 0,
+         "ms": sd_ms, "in_graph_ms": sd_graph, "plain_ms": sd_plain,
+         "bound_ms": sd_bound, "bound_by": sd_by, "library_ms": None,
+         "timed_on": {"tree": "11x11, 65,536-playout search",
+                      "mean_lane_depth": float(depths.float().mean()),
+                      "max_lane_depth": int(depths.max()),
+                      "bytes": sd_bytes, "operations": sd_ops}},
+        {"name": "hex_playout", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hex_winner.cu",
+         "replaces": "src/repro/kernels/hex_winner.py:46",
+         "shape": [W, C], "checked": playout, "max_abs_err": 0,
+         "ms": hp_ms, "in_graph_ms": hp_graph, "plain_ms": hp_plain,
+         "bound_ms": hp_bound, "bound_by": hp_by, "library_ms": None,
+         "timed_on": {"mean_empty_cells": float((leaves == 0).sum(dim=1)
+                                                .float().mean()),
+                      "bytes": hp_bytes, "operations": hp_ops}},
         {"name": "uct_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/uct_select.cu",
          "replaces": "src/repro/kernels/uct_select.py:36",
@@ -426,7 +690,8 @@ def phase_kernels(torch):
          "library_ms": None, "flood_fill_ms": flood_ms},
     ]
     emit("kernels_checked", uct_select=uct, hex_winner=hexw,
-         note="both bounds are far below one launch's latency: at these "
+         select_descent=descent, hex_playout=playout,
+         note="every bound is far below one launch's latency: at these "
               "shapes the kernels are launch-bound")
     return records
 
@@ -466,12 +731,44 @@ def count_launches_one_iteration(torch, tree, board, cfg, key):
     return kernels, device_us / 1e3
 
 
+@contextlib.contextmanager
+def recorded_depths():
+    """Keep every selection round's `depths` output (the descent's own
+    lane depths) while the context is open: host-side only, no launch and
+    no read until the caller reduces them."""
+    from repro_torch.kernels import ops
+    seen, inner = [], ops.select_descent
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen.append(out[1])
+        return out
+
+    ops.select_descent = recording
+    try:
+        yield seen
+    finally:
+        ops.select_descent = inner
+
+
+def depth_stats(torch, seen) -> dict:
+    """Mean lane depth over every lane of every round, and the mean of
+    (deepest lane + 1) per round: the trip count the plain version's
+    lockstep level loop would make, one uct_select launch per level."""
+    depths = torch.stack(seen)
+    return {"mean_lane_depth": float(depths.float().mean()),
+            "mean_lockstep_levels": float((depths.max(dim=1).values + 1)
+                                          .float().mean()),
+            "selection_rounds": depths.shape[0]}
+
+
 def phase_search(torch, n_playouts: int):
     from repro_torch import parity, rng
     from repro_torch.core import scheduler as sched
     from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
     from repro_torch.core.tree import check_invariants
-    from repro_torch.kernels import hex_winner as hw, uct_select as us
+    from repro_torch.kernels import hex_playout as hp, hex_winner as hw
+    from repro_torch.kernels import select_descent as sd, uct_select as us
 
     cap = FULL["tree_cap"] if n_playouts <= SHORT_PLAYOUTS else 1 << 20
     cfg = GSCPMConfig(**{**FULL, "tree_cap": cap}, n_playouts=n_playouts)
@@ -489,9 +786,9 @@ def phase_search(torch, n_playouts: int):
     short = GSCPMConfig(**FULL, n_playouts=SHORT_PLAYOUTS)
     short_iters = sum(r.m for r in sched.make_schedule(
         short.n_playouts, short.n_tasks, short.n_workers, short.scheduler))
-    us.uct_select.launches = 0
-    tree_a, st_a = gscpm_search(board, 1, short, key)
-    short_levels = us.uct_select.launches / short_iters
+    with recorded_depths() as seen:
+        tree_a, st_a = gscpm_search(board, 1, short, key)
+    short_depths = depth_stats(torch, seen)
     tree_b, st_b = gscpm_search(board, 1, short, key)
     fields = parity.differing_fields(tree_a, tree_b)
     check(fields == [],
@@ -502,37 +799,48 @@ def phase_search(torch, n_playouts: int):
          playouts_per_s=[st_a["playouts_per_s"], st_b["playouts_per_s"]],
          ms_per_sync_iteration=[1e3 * st_a["time_s"] / short_iters,
                                 1e3 * st_b["time_s"] / short_iters],
-         mean_descent_levels=short_levels, tree_nodes=st_a["tree_nodes"])
+         **short_depths, tree_nodes=st_a["tree_nodes"])
     del tree_a, tree_b
 
     # the main path: counts to 0 just before, read just after
-    us.uct_select.launches = 0
-    hw.hex_winner.launches = 0
-    tree, st = gscpm_search(board, 1, cfg, key)
-    launches = {"uct_select": us.uct_select.launches,
-                "hex_winner": hw.hex_winner.launches}
+    counters = {"select_descent": sd.select_descent,
+                "hex_playout": hp.hex_playout,
+                "uct_select": us.uct_select, "hex_winner": hw.hex_winner}
+    for c in counters.values():
+        c.launches = 0
+    with recorded_depths() as seen:
+        tree, st = gscpm_search(board, 1, cfg, key)
+    launches = {name: c.launches for name, c in counters.items()}
+    depths = depth_stats(torch, seen)
 
+    rounds = iterations * cfg.vl_rounds
     check(st["playouts"] == n_playouts, "playout count differs from the budget")
     check(float(tree.visits[0]) == n_playouts,
           f"root visits {float(tree.visits[0])} != playouts {n_playouts}")
     check_invariants(tree)
-    check(launches["uct_select"] > 0, "uct_select kernel never launched")
-    check(launches["hex_winner"] == iterations,
-          f"hex_winner launches {launches['hex_winner']} != sync iterations "
+    check(launches["select_descent"] == rounds,
+          f"select_descent launches {launches['select_descent']} != selection "
+          f"rounds {rounds}")
+    check(launches["hex_playout"] == iterations,
+          f"hex_playout launches {launches['hex_playout']} != sync iterations "
           f"{iterations}")
+    check(launches["uct_select"] == 0 and launches["hex_winner"] == 0,
+          f"the one-tile kernels launched on the Hex path: {launches}")
     check(torch.isfinite(tree.wins).all() and torch.isfinite(tree.visits).all(),
           "non-finite tree statistics")
     check(0 <= st["best_move"] < game.n_cells, "best move off the board")
 
     n_kernels, dev_ms = count_launches_one_iteration(torch, tree, board, cfg,
                                                      key)
+    check(n_kernels is not None and n_kernels <= MAX_KERNELS_PER_ITERATION,
+          f"one sync iteration launched {n_kernels} CUDA kernels, more than "
+          f"{MAX_KERNELS_PER_ITERATION}")
     rate = st["playouts_per_s"]
     emit("search", config={**FULL, "tree_cap": cap, "n_playouts": n_playouts},
          playouts_per_s=rate, seconds=st["time_s"],
          sync_iterations=iterations,
          ms_per_sync_iteration=1e3 * st["time_s"] / iterations,
-         mean_descent_levels=launches["uct_select"] / iterations,
-         launches=launches, tree_nodes=st["tree_nodes"],
+         **depths, launches=launches, tree_nodes=st["tree_nodes"],
          best_move=st["best_move"], root_value=st["root_value"],
          cuda_kernels_in_one_iteration=n_kernels,
          device_ms_in_one_iteration=dev_ms,
@@ -557,13 +865,14 @@ def phase_search(torch, n_playouts: int):
 
 def explain_divergence(torch, cfg, board, key):
     """Step the kernel-driven and the plain-driven search side by side; at
-    the first sync iteration after which the trees differ, find the pick
-    that differs and require its top-two score gap to be under the tie
-    threshold. Anything else is a failure."""
+    the first sync iteration after which the trees differ, the selection
+    round must part at a pick inside the tie gap (0 < gap < TIE_GAP).
+    Anything else — a clear pick, or a difference outside the descent
+    (the playout is integer-exact) — is a failure."""
     from repro_torch import parity
     from repro_torch.core import gscpm
     from repro_torch.core.tree import init_tree
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     a = init_tree(cfg.tree_cap, cfg.game_obj.n_actions, 1, device="cuda")
     b = parity.clone_tree(a)
     for it, (iter_keys, active) in enumerate(parity.iteration_plan(cfg, key)):
@@ -572,11 +881,12 @@ def explain_divergence(torch, cfg, board, key):
         with ops.plain_versions():
             gscpm.sync_iteration(b, board, cfg, cfg.cp, iter_keys, active)
         if parity.differing_fields(a, b):
-            pick = parity.first_divergent_pick(
-                before, board, cfg, cfg.cp, iter_keys, ref.uct_select)
+            pick = parity.first_divergent_descent(before, board, cfg, cfg.cp,
+                                                  iter_keys)
             check(pick is not None,
-                  f"trees differ after sync iteration {it} but no pick does")
-            check(pick["gap"] < parity.TIE_GAP,
+                  f"trees differ after sync iteration {it} but the "
+                  "selection round agrees: the playout or the backup differs")
+            check(pick["excused"],
                   f"kernel and plain version part at a pick with a clear "
                   f"gap: {pick}")
             return {"sync_iteration": it, **pick}
@@ -1190,12 +1500,15 @@ def main(argv=None) -> int:
     seq_rate = phase_sequential(torch, args.sequential_playouts)
     lm_launches, flash_by_body = phase_lm_search(torch)
     for r in records:
-        # each kernel's count from its own path: the Hex search for
-        # uct_select and hex_winner, the LM search for the LM kernels
-        r["launches"] = launches.get(r["name"], lm_launches.get(r["name"]))
-        r["launches_by_path"] = {
-            "hex_search": launches.get(r["name"], 0),
-            "lm_search": lm_launches.get(r["name"], 0)}
+        # each kernel's count on the paths it serves, each path's counters
+        # zeroed just before it ran: select_descent and hex_playout on the
+        # Hex search; uct_select (the LM descent's tile), flash_attention and
+        # rmsnorm on the LM search; hex_winner judges filled boards, which
+        # neither path asks for
+        by_path = {"hex_search": launches.get(r["name"], 0),
+                   "lm_search": lm_launches.get(r["name"], 0)}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():
             body_record["launches"] = flash_by_body[body]   # the LM path's
     emit("summary", seconds=round(time.perf_counter() - t0, 1),

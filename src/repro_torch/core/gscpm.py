@@ -8,14 +8,16 @@ shared tree. Here:
   thread;
 - a *task* is an ``m``-iteration chunk of batch-synchronous iterations;
 - a *sync iteration* selects W leaves (in ``vl_rounds`` virtual-loss rounds)
-  via a level-synchronous batched descent — all W lanes step down the tree
-  in lockstep, one ``kernels.ops.uct_select`` (W, C) tile per level — then
-  dedup-expands the proposed (leaf, move) pairs with prefix-sum slot
-  allocation (the paper's atomic child index), evaluates W playouts as ONE
-  fused (W, cells) stage through the game's batched playout primitive
-  (``game.playout_batch`` — for Hex one batched place, one sort-free
-  parity fill, one connectivity solve via ``kernels.ops.hex_winner``) — and
-  scatter-adds the results along the W paths (the paper's atomic w_j/n_j);
+  via a batched descent — ``kernels.ops.select_descent``: on the card one
+  kernel launch per round in which every lane walks to its leaf, on the
+  CPU the lockstep level loop with one ``kernels.ops.uct_select`` (W, C)
+  tile per level — then dedup-expands the proposed (leaf, move) pairs with
+  prefix-sum slot allocation (the paper's atomic child index), evaluates W
+  playouts as ONE fused (W, cells) stage through the game's batched
+  playout primitive (``game.playout_batch`` — for Hex one launch of
+  ``kernels.ops.hex_playout`` on the card: fill and connectivity together)
+  — and scatter-adds the results along the W paths (the paper's atomic
+  w_j/n_j);
 - per-task RNG streams come from ``rng.fold_in`` (the paper's per-task MKL
   streams).
 
@@ -28,9 +30,10 @@ Port of ``repro.core.gscpm``, same public names. What differs in idiom:
   port updates the tree IN PLACE: ``expand_batch``, ``sync_iteration``,
   ``run_chunk``, ``run_schedule_round`` and ``gscpm_search(tree=...)`` write
   into the tensors of the tree they are given and return the same ``Tree``.
-- The lockstep descent loops while any lane is still descending, which
-  costs ONE host read per level; it is the only host synchronisation
-  inside a batched sync iteration.
+- On the card a sync iteration reads nothing back to the host: the descent
+  kernel runs every lane to its leaf in one launch. The plain level loop
+  (the CPU's path, and the card's inside ``kernels.ops.plain_versions()``)
+  reads the host once per level to know when every lane is done.
 - Where the JAX package lifts a per-lane function with ``vmap``, the batch
   axis is written out (``propose_move`` takes leading axes; the scalar
   oracles are Python loops over lanes).
@@ -196,16 +199,16 @@ def advance_paths(paths: torch.Tensor, depths: torch.Tensor,
                        child[:, None], paths)
 
 
-def select_batch(tree: Tree, root_board: torch.Tensor, game, cp,
-                 noise_keys: torch.Tensor, noise_scale: float):
-    """Level-synchronous batched descent: all W lanes in lockstep.
+def select_levels(tree: Tree, root_board: torch.Tensor, game, cp,
+                  noise_keys: torch.Tensor, noise_scale: float):
+    """Level-synchronous batched descent: all W lanes in lockstep — the
+    plain version of the descent kernel (``kernels.ops.select_descent``).
 
     Each level gathers the lanes' child stats into one (W, C) tile
     (``tree.child_stat_tile``) and picks all W children with a single
-    ``kernels.ops.uct_select`` call — the CUDA kernel on the card, its
-    plain version on the CPU. Lanes that reached a not-fully-expanded or
-    terminal node (or the depth cap) are masked out of the tile and held in
-    place. Bit-identical to per-lane ``select_one`` under the same RNG
+    ``kernels.ops.uct_select`` call. Lanes that reached a not-fully-expanded
+    or terminal node (or the depth cap) are masked out of the tile and held
+    in place. Bit-identical to per-lane ``select_one`` under the same RNG
     schedule.
 
     The loop ends when every lane is done: one host read per level.
@@ -250,6 +253,17 @@ def select_batch(tree: Tree, root_board: torch.Tensor, game, cp,
         n_empty = torch.where(step, n_empty - 1, n_empty)
         done = done | ~step
     return paths, depths, nodes, boards, n_empty
+
+
+def select_batch(tree: Tree, root_board: torch.Tensor, game, cp,
+                 noise_keys: torch.Tensor, noise_scale: float):
+    """One selection round of W lanes: ``kernels.ops.select_descent`` — on
+    the card ONE launch of the descent kernel, with no host read; on the
+    CPU the lockstep level loop ``select_levels``. Both give the same
+    (paths, depths, leaves, boards, n_empty), bit-identical to per-lane
+    ``select_one`` under the same RNG schedule."""
+    return ops.select_descent(tree, root_board, game, cp,
+                              noise_keys.contiguous(), noise_scale)
 
 
 def propose_move(tree: Tree, leaf: torch.Tensor, board: torch.Tensor,

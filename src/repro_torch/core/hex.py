@@ -18,9 +18,10 @@ two vectorizable equivalents:
   in O(log n_cells) rounds: the formulation the hand-written CUDA kernel
   ``kernels/hex_winner.py`` runs on the card.
 
-``winner_batch``/``playout_batch`` go through ``kernels.ops.hex_winner``: on
-a CUDA tensor that is always the pointer-doubling kernel; the flood fill
-stays as an independent oracle.
+``winner_batch`` goes through ``kernels.ops.hex_winner``: on a CUDA tensor
+that is always the pointer-doubling kernel; the flood fill stays as an
+independent oracle. ``playout_batch`` goes through ``kernels.ops.hex_playout``:
+on a CUDA tensor one kernel launch does the fill and the same labelling.
 
 The playout exploits the Hex theorem: a completely filled board has exactly
 one winner, so a playout = randomly fill all empty cells with alternating
@@ -358,11 +359,19 @@ def playout_batch(boards: torch.Tensor, to_move, keys: torch.Tensor,
                   spec: HexSpec) -> torch.Tensor:
     """W random playouts fused into one (W, cells) evaluation stage.
 
-    fill (one sort-free parity pass) + winner (one batched connectivity
-    solve via ``ops.hex_winner``).
+    ``kernels.ops.hex_playout``: on the card ONE kernel launch fills every
+    board and solves its connectivity; on the CPU the fill (one sort-free
+    parity pass, ``random_fill_batch``) and the winner (one batched
+    connectivity solve). ``to_move`` is a scalar or (W,); both paths fill
+    lane w exactly as ``random_fill_batch`` does with ``keys[w]``.
     """
-    filled = random_fill_batch(boards, to_move, keys, spec)
-    return winner_batch(filled, spec)
+    from repro_torch.kernels import ops  # function-level: kernels ref imports hex
+
+    W = boards.shape[0]
+    tm = torch.as_tensor(to_move, device=boards.device)
+    if tm.dtype != torch.int32 or tm.shape != (W,):
+        tm = tm.to(torch.int32).expand(W).contiguous()
+    return ops.hex_playout(boards, tm, keys.contiguous(), spec.size)
 
 
 def random_fill(board: torch.Tensor, to_move, key: torch.Tensor,

@@ -6,11 +6,12 @@ Virtual loss enters as extra visits with zero wins (lowers X_j and the
 exploration bonus), diversifying simultaneous selections — the batched
 analogue of the lock contention the paper's threads experience.
 
-This is the plain PyTorch spelling (port of ``repro.core.uct``);
-``repro_torch.kernels.uct_select`` is the hand-written CUDA kernel the
-search reaches on the card through ``repro_torch.kernels.ops.uct_select``,
-which scores a whole (W, C) level tile at once. ``cp`` is a run-time value
-everywhere.
+This is the plain PyTorch spelling (port of ``repro.core.uct``). On the
+card the same arithmetic runs in ``csrc/uct_select.cu``'s ``uct_score``:
+the one-tile kernel ``kernels.ops.uct_select`` scores a whole (W, C) level
+tile at once (the LM search's descent), the descent kernel
+``kernels.ops.select_descent`` scores every level of a selection round in
+one launch (the Hex search's). ``cp`` is a run-time value everywhere.
 """
 
 from __future__ import annotations

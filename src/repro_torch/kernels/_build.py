@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels: ``nvcc`` into one shared library with a
 plain C interface, bound with ``ctypes``.
 
-Nothing happens at import. ``load()`` compiles ``csrc/*.cu`` at first use —
+Nothing happens at import. ``load()`` compiles ``csrc/*.cu`` (which include
+``csrc/*.cuh``) at first use —
 one ``nvcc -c`` per source, all started together, then one link — into
 ``build/`` at the root of the checkout (or ``$REPRO_TORCH_BUILD_DIR``), under
 a name keyed by a hash of the sources and flags, and returns the loaded
@@ -60,6 +61,12 @@ ARGS = {
     "repro_uct_select": "7PfiiPP",
     # boards, W, size, rounds, out, stream
     "repro_hex_winner": "PiiiPP",
+    # children, n_children, wins, visits, vloss, move, to_move, root_board,
+    # noise_keys, cp, noise_scale, max_depth, W, C, n, cap, paths, depths,
+    # leaves, n_empty, boards, stream
+    "repro_select_descent": "9Pff5i6P",
+    # boards, to_move, keys, W, size, rounds, out, filled (0: none), stream
+    "repro_hex_playout": "3P3i3P",
     # q, k, v, o, B, H, Hkv, S, D, scale, causal, dtype, then the (batch,
     # head, seq) element strides of q, k, v and o, stream; the CUDA-core
     # body and the tensor-core body take the same struct
@@ -118,6 +125,12 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include (``threefry.cuh``): part of the
+    build's hash, so editing one rebuilds."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build_dir() -> Path:
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:
@@ -143,7 +156,7 @@ def _ptxas_log(target: Path) -> Path:
 
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *headers()]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

@@ -1,4 +1,5 @@
-// Batched Hex winner by pointer-doubling connected components.
+// Batched Hex winner by pointer-doubling connected components, and the
+// whole playout (random fill + winner) in one launch.
 //
 // Replaces the TPU kernel repro/kernels/hex_winner.py:_winner_kernel.
 //
@@ -7,7 +8,8 @@
 // per cell per round on shared memory. The TPU kernel had no gather, so it
 // spelled the scatter-min and the pointer jump as one-hot (C, C)
 // reductions; that is not carried over. Here one CTA owns one board and
-// keeps the stone mask and three label arrays in shared memory:
+// keeps the stone mask and three label arrays in shared memory
+// (black_winner, which both kernels call):
 //
 //   per round (exactly `rounds` of them, no convergence test):
 //     1. gather hook   M[i] = min(P[i], P[nbr]) over the six in-bounds
@@ -25,33 +27,39 @@
 // Then the roots of top-row black cells are marked and the bottom row is
 // tested. The result is exact: any correct connectivity gives the same
 // bits. `size` is a run-time argument (n = size*size <= kMaxCells).
+//
+// hex_winner_kernel takes FILLED boards. hex_playout_kernel takes the
+// leaf boards of a sync iteration and does the whole playout: what the
+// plain path spreads over ~190 eager launches (a threefry draw, the
+// (W, n, n) rank compare of core/game.py:empty_fill_ranks, the parity
+// colours) before its one connectivity launch. Per CTA: the board's n
+// uniforms go to shared memory (threefry.cuh, uniform(key, i) at counter
+// (0, i), the stream rng.uniform(key, n) gives); each empty cell counts
+// its rank #{empty j : (u_j, j) < (u_i, i)} over shared memory (the same
+// index tie-break), takes colour to_move on an even rank and 3 - to_move
+// on an odd one; then black_winner. The (W, n, n) compare never reaches
+// device memory; the filled board is written out only when asked for.
 
 #include <cuda_runtime.h>
 #include <cstring>
+
+#include "threefry.cuh"
 
 namespace {
 
 constexpr int kMaxCells = 625;   // boards up to 25 x 25
 constexpr int kThreads = 128;
 
-__global__ void hex_winner_kernel(const signed char* __restrict__ boards,
-                                  int size, int rounds,
-                                  signed char* __restrict__ out) {
-  __shared__ unsigned char black[kMaxCells];
-  __shared__ int P[kMaxCells];
-  __shared__ int Q[kMaxCells];
-  __shared__ int M[kMaxCells];
-  __shared__ int reached;
-
+// The winner of the filled board whose BLACK stones `black` marks (written
+// by the caller before the call): 1 if black joins top and bottom, else 2.
+// Every thread of the CTA calls it; P, Q, M and *reached are scratch.
+__device__ signed char black_winner(const unsigned char* black, int* P,
+                                    int* Q, int* M, int* reached, int size,
+                                    int rounds) {
   const int n = size * size;
-  const signed char* board = boards + static_cast<size_t>(blockIdx.x) * n;
   const int tid = threadIdx.x;
-
-  for (int i = tid; i < n; i += kThreads) {
-    black[i] = board[i] == 1;
-    P[i] = i;  // non-black cells stay inert self-loops
-  }
-  if (tid == 0) reached = 0;
+  for (int i = tid; i < n; i += kThreads) P[i] = i;  // non-black: inert loops
+  if (tid == 0) *reached = 0;
   __syncthreads();
 
   const int dr[6] = {-1, -1, 0, 0, 1, 1};
@@ -93,9 +101,67 @@ __global__ void hex_winner_kernel(const signed char* __restrict__ boards,
     if (black[i]) M[P[i]] = 1;
   __syncthreads();
   for (int i = n - size + tid; i < n; i += kThreads)
-    if (black[i] && M[P[i]]) reached = 1;
+    if (black[i] && M[P[i]]) *reached = 1;
   __syncthreads();
-  if (tid == 0) out[blockIdx.x] = reached ? 1 : 2;
+  return *reached ? 1 : 2;
+}
+
+__global__ void hex_winner_kernel(const signed char* __restrict__ boards,
+                                  int size, int rounds,
+                                  signed char* __restrict__ out) {
+  __shared__ unsigned char black[kMaxCells];
+  __shared__ int P[kMaxCells];
+  __shared__ int Q[kMaxCells];
+  __shared__ int M[kMaxCells];
+  __shared__ int reached;
+
+  const int n = size * size;
+  const signed char* board = boards + static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) black[i] = board[i] == 1;
+  const signed char w = black_winner(black, P, Q, M, &reached, size, rounds);
+  if (threadIdx.x == 0) out[blockIdx.x] = w;
+}
+
+__global__ void hex_playout_kernel(const signed char* __restrict__ boards,
+                                   const int* __restrict__ to_move,
+                                   const long long* __restrict__ keys,
+                                   int size, int rounds,
+                                   signed char* __restrict__ out,
+                                   signed char* __restrict__ filled) {
+  __shared__ signed char cell[kMaxCells];
+  __shared__ float u[kMaxCells];
+  __shared__ unsigned char black[kMaxCells];
+  __shared__ int P[kMaxCells];
+  __shared__ int Q[kMaxCells];
+  __shared__ int M[kMaxCells];
+  __shared__ int reached;
+
+  const int n = size * size;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  const threefry::Key key = threefry::read_key(keys, blockIdx.x);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    cell[i] = boards[base + i];
+    u[i] = threefry::uniform(key, static_cast<uint32_t>(i));
+  }
+  __syncthreads();
+
+  const int mover = to_move[blockIdx.x];
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    int c = cell[i];
+    if (c == 0) {
+      const float ui = u[i];
+      int rank = 0;
+      for (int j = 0; j < n; ++j) {
+        const float uj = u[j];
+        rank += cell[j] == 0 && (uj < ui || (uj == ui && j < i));
+      }
+      c = rank % 2 == 0 ? mover : 3 - mover;
+    }
+    black[i] = c == 1;
+    if (filled != nullptr) filled[base + i] = static_cast<signed char>(c);
+  }
+  const signed char w = black_winner(black, P, Q, M, &reached, size, rounds);
+  if (threadIdx.x == 0) out[blockIdx.x] = w;
 }
 
 }  // namespace
@@ -123,5 +189,36 @@ extern "C" int repro_hex_winner(const void* packed) {
                       static_cast<cudaStream_t>(a.stream)>>>(
       static_cast<const signed char*>(a.boards), a.size, a.rounds,
       static_cast<signed char*>(a.out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+// the argument struct: kernels/_build.py ARGS["repro_hex_playout"]
+struct HexPlayoutArgs {
+  const void* boards;
+  const void* to_move;
+  const void* keys;
+  int W, size, rounds;
+  void* out;
+  void* filled;  // null: the filled boards are not written
+  void* stream;
+};
+}  // namespace
+
+extern "C" int repro_hex_playout_args_bytes() {
+  return static_cast<int>(sizeof(HexPlayoutArgs));
+}
+
+extern "C" int repro_hex_playout(const void* packed) {
+  HexPlayoutArgs a;
+  memcpy(&a, packed, sizeof a);
+  if (a.W <= 0 || a.size < 1 || a.size * a.size > kMaxCells || a.rounds < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  hex_playout_kernel<<<a.W, kThreads, 0,
+                       static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const signed char*>(a.boards),
+      static_cast<const int*>(a.to_move),
+      static_cast<const long long*>(a.keys), a.size, a.rounds,
+      static_cast<signed char*>(a.out), static_cast<signed char*>(a.filled));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,11 @@ from __future__ import annotations
 import contextlib
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import hex_playout as _hp
 from repro_torch.kernels import hex_winner as _hw
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import select_descent as _sd
 from repro_torch.kernels import uct_select as _us
 
 _force_plain = False
@@ -51,8 +53,39 @@ def uct_select(wins, visits, vloss, parent_total, valid, cp,
                            noise=noise, lane_mask=lane_mask)
 
 
+def select_descent(tree, root_board, game, cp, noise_keys, noise_scale: float):
+    """One selection round of the batched search: every lane descends from
+    the root to its leaf — the descent's dispatch point.
+
+    Returns ``(paths, depths, leaves, boards, n_empty)``, as
+    ``core.gscpm.select_batch`` documents them. On the card this is ONE
+    launch of the descent kernel, for games with the shared board
+    convention (``place`` writes the mover into the move's cell); otherwise
+    the plain level loop (``core.gscpm.select_levels``). ``noise_keys``
+    must be contiguous on the card.
+    """
+    if root_board.is_cuda and not _force_plain:
+        return _sd.select_descent(tree, root_board, noise_keys, cp,
+                                  noise_scale, game.max_moves + 1)
+    return _ref.select_descent(tree, root_board, game, cp, noise_keys,
+                               noise_scale)
+
+
+def hex_playout(boards, to_move, keys, size: int):
+    """W random Hex playouts — the playout phase's dispatch point.
+
+    boards: (W, size*size) int8 leaf boards, to_move (W,) int32, keys (W, 2)
+    int64; returns (W,) int8 winners. On the card one launch fills and
+    judges every board; otherwise ``random_fill_batch`` + ``hex_winner``.
+    """
+    if boards.is_cuda and not _force_plain:
+        return _hp.hex_playout(boards, to_move, keys, size)
+    return _ref.hex_playout(boards, to_move, keys, size)
+
+
 def hex_winner(boards, size: int):
-    """Batched Hex winner evaluation — the playout phase's dispatch point.
+    """Batched Hex winner of FILLED boards (``core.hex.winner_batch``; the
+    search's playouts go through ``hex_playout``).
 
     boards: (W, size*size) FILLED boards; returns (W,) int8 winners. On
     the card this is always the pointer-doubling kernel; the batched flood

@@ -82,3 +82,26 @@ def hex_winner(boards: torch.Tensor, size: int) -> torch.Tensor:
     from repro_torch.core import hex as hx
     black = hx.connected_batch(boards, hx.BLACK, hx.HexSpec(size))
     return torch.where(black, 1, 2).to(torch.int8)
+
+
+def hex_playout(boards: torch.Tensor, to_move: torch.Tensor,
+                keys: torch.Tensor, size: int) -> torch.Tensor:
+    """W random playouts of (W, size*size) boards -> (W,) int8 winners:
+    ``core.hex.random_fill_batch`` then the plain ``hex_winner``, exactly
+    the Hex search's playout stage (the kernel's filled boards are held
+    against ``random_fill_batch`` itself)."""
+    from repro_torch.core import hex as hx
+    filled = hx.random_fill_batch(boards, to_move, keys, hx.HexSpec(size))
+    return hex_winner(filled, size)
+
+
+def select_descent(tree, root_board: torch.Tensor, game, cp,
+                   noise_keys: torch.Tensor, noise_scale: float):
+    """One selection round: ``core.gscpm.select_levels``, the lockstep level
+    loop, run with every kernel dispatch on its plain version. Returns
+    ``(paths, depths, leaves, boards, n_empty)``."""
+    from repro_torch.core.gscpm import select_levels
+    from repro_torch.kernels import ops
+    with ops.plain_versions():
+        return select_levels(tree, root_board, game, cp, noise_keys,
+                             noise_scale)

@@ -19,14 +19,15 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from repro_torch import rng
 from repro_torch.core import gscpm, scheduler as sched
 from repro_torch.core import uct as uct_mod
 from repro_torch.core.game import EMPTY
-from repro_torch.core.tree import Tree, child_stat_tile, init_tree
-from repro_torch.kernels import ops
+from repro_torch.core.tree import NO_NODE, Tree, child_stat_tile, init_tree
+from repro_torch.kernels import ops, ref
 
 TIE_GAP = 1e-6  # a pick whose top-two score gap is below this may go either way
 
@@ -130,21 +131,137 @@ def first_divergent_pick(tree: Tree, root_board: torch.Tensor,
     return None
 
 
+def equal_stat_tree(root_board: torch.Tensor, levels: int, to_move: int,
+                    cap: int, seed: int = 0) -> Tree:
+    """A tree on which the tie-break noise decides every pick: fully
+    expanded ``levels`` plies below ``root_board`` (every node above that
+    depth has one child per empty cell, in a seeded random slot order), and
+    siblings carry equal visits and wins (the subtree's node count, and
+    half of it rounded down), so all children of a node score alike.
+
+    Nodes ``levels`` plies down have no children: a lane stops there, or
+    earlier at a filled board. ``n_actions`` is the board's length; the
+    tree lies on ``root_board``'s device."""
+    root = root_board.cpu().numpy()
+    n = root.size
+    order = np.random.default_rng(seed)
+    parent, move, mover, depth = [NO_NODE], [NO_NODE], [to_move], [0]
+    boards, kids = [root], [[]]
+    i = 0
+    while i < len(parent):
+        if depth[i] < levels:
+            for mv in order.permutation(np.flatnonzero(boards[i] == EMPTY)):
+                b = boards[i].copy()
+                b[mv] = mover[i]
+                kids[i].append(len(parent))
+                parent.append(i)
+                move.append(int(mv))
+                mover.append(3 - mover[i])
+                depth.append(depth[i] + 1)
+                boards.append(b)
+                kids.append([])
+        i += 1
+    N = len(parent)
+    if N > cap:
+        raise ValueError(f"equal_stat_tree: {N} nodes exceed cap {cap}")
+    size = np.ones(N)
+    for j in range(N - 1, 0, -1):
+        size[parent[j]] += size[j]
+    tree = init_tree(cap, n, to_move, device=root_board.device)
+    ids = torch.arange(N, device=root_board.device)
+    i32 = dict(dtype=torch.int32, device=root_board.device)
+    f32 = dict(dtype=torch.float32, device=root_board.device)
+    tree.parent[ids] = torch.tensor(parent, **i32)
+    tree.move[ids] = torch.tensor(move, **i32)
+    tree.to_move[ids] = torch.tensor(mover, **i32)
+    tree.n_children[ids] = torch.tensor([len(k) for k in kids], **i32)
+    for j, k in enumerate(kids):
+        if k:
+            tree.children[j, :len(k)] = torch.tensor(k, **i32)
+    tree.visits[ids] = torch.tensor(size, **f32)
+    tree.wins[ids] = torch.tensor(np.floor(size / 2), **f32)
+    tree.n_nodes.fill_(N)
+    return tree
+
+
+def descent_partings(tree: Tree, got, want, cp, noise_keys: torch.Tensor,
+                     noise_scale: float) -> list[dict]:
+    """Every lane on which two results of one selection round on ``tree``
+    (``(paths, depths, leaves, boards, n_empty)``, as ``select_batch``
+    returns them) part, with the first pick on which their paths part.
+
+    ``gap`` is how far the lower-scored of the two picked children lies
+    below the row's best score, by the plain arithmetic. A parting is
+    ``excused`` only when 0 < gap < TIE_GAP: a pick inside float rounding.
+    An exact tie (gap 0) is the first-index rule's to decide, and lanes
+    whose paths agree but whose other outputs differ are never excused."""
+    differ = torch.zeros(noise_keys.shape[0], dtype=torch.bool,
+                         device=noise_keys.device)
+    for a, b in zip(got, want):
+        d = a != b.to(a.device)
+        differ |= d.reshape(d.shape[0], -1).any(dim=1)
+    out = []
+    for lane in torch.nonzero(differ).flatten().tolist():
+        pa, pb = got[0][lane], want[0][lane].to(got[0].device)
+        cols = torch.nonzero(pa != pb).flatten()
+        if cols.numel() == 0:
+            out.append({"lane": lane, "excused": False,
+                        "note": "paths agree, another output differs"})
+            continue
+        col = int(cols[0])
+        node = int(pa[col - 1])
+        kids = tree.children[node]
+        slots = [torch.nonzero(kids == p[col]).flatten() for p in (pa, pb)]
+        if any(s.numel() == 0 for s in slots):
+            out.append({"lane": lane, "level": col - 1, "excused": False,
+                        "note": "a pick off the node's children"})
+            continue
+        scores = _uct_row(tree, node, lane, col - 1, noise_keys, cp,
+                          noise_scale)
+        picks = [int(s[0]) for s in slots]
+        gap = float(scores.max() - torch.minimum(scores[picks[0]],
+                                                 scores[picks[1]]))
+        out.append({"lane": lane, "level": col - 1, "picks": picks,
+                    "gap": gap, "excused": 0.0 < gap < TIE_GAP})
+    return out
+
+
+def first_divergent_descent(tree: Tree, root_board: torch.Tensor,
+                            cfg: gscpm.GSCPMConfig, cp,
+                            iter_keys: torch.Tensor):
+    """One sync iteration's selection round on ``tree`` (not modified)
+    through ``kernels.ops.select_descent`` and through its plain version;
+    None if the two agree in every output, else the first lane's parting
+    (``descent_partings``). Single virtual-loss round only."""
+    if cfg.vl_rounds != 1:
+        raise ValueError("first_divergent_descent handles vl_rounds == 1 only")
+    game = cfg.game_obj
+    noise_keys = rng.split(iter_keys, 3)[:, 0].contiguous()
+    args = (tree, root_board, game, cp, noise_keys, cfg.select_noise)
+    partings = descent_partings(tree, ops.select_descent(*args),
+                                ref.select_descent(*args), cp, noise_keys,
+                                cfg.select_noise)
+    return partings[0] if partings else None
+
+
 # ------------------------------------------------------------ LM decoding ----
 def _uct_row(tree: Tree, node: int, lane: int, level: int,
-             noise_keys: torch.Tensor, cfg):
+             noise_keys: torch.Tensor, cp, noise_scale: float):
     """The final scores (C,) that lane ``lane``'s pick among ``node``'s
     children at descent level ``level`` is the argmax of, by the plain
-    arithmetic, as ``select_token_batch`` forms them."""
+    arithmetic, as the descent (``select_levels``, ``select_token_batch``)
+    forms them."""
     dev = noise_keys.device
     _, valid, wins, visits, vloss, ptot = child_stat_tile(
         tree, torch.tensor([node], dtype=torch.int32, device=dev))
-    noise = gscpm.level_noise(
-        noise_keys[lane:lane + 1],
-        torch.tensor([level], dtype=torch.int32, device=dev),
-        tree.max_children, cfg.select_noise)
+    noise = None
+    if noise_scale > 0.0:
+        noise = gscpm.level_noise(
+            noise_keys[lane:lane + 1],
+            torch.tensor([level], dtype=torch.int32, device=dev),
+            tree.max_children, noise_scale)
     scores = uct_mod.noisy_scores(
-        uct_mod.uct_scores(wins, visits, vloss, ptot, cfg.cp, valid), noise)
+        uct_mod.uct_scores(wins, visits, vloss, ptot, cp, valid), noise)
     return torch.clamp(scores, min=-1e30, max=1e30)[0]
 
 
@@ -191,8 +308,8 @@ def _decode_partings(before: tuple[Tree, Tree], cfg, a: dict, b: dict,
             out.append({"decision": "uct_pick", "lane": lane, "level": col - 1,
                         "excused": False, "note": "a pick off the children"})
             continue
-        sa, sb = (_uct_row(t, node, lane, col - 1, noise_keys, cfg)
-                  for t in before)
+        sa, sb = (_uct_row(t, node, lane, col - 1, noise_keys, cfg.cp,
+                           cfg.select_noise) for t in before)
         out.append(_parting("uct_pick", lane, sa, sb, int(pa[0, 0]),
                             int(pb[0, 0]), slack=TIE_GAP, level=col - 1))
     leaf_diff = (a["leaf_logits"] - b["leaf_logits"]).abs().amax(dim=-1)
