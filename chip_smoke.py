@@ -12,7 +12,7 @@ Hex path's ``select_descent`` (a whole selection round in one launch) and
 ``hex_playout`` (a whole playout in one launch), the one-tile
 ``uct_select`` and ``hex_winner``, both bodies of ``flash_attention``, the
 bf16 tensor-core one and the CUDA-core one, and ``rmsnorm`` — and drives
-the port's two paths:
+the port's four paths:
 
 - one full-width GSCPM Hex search (11x11, 256 lanes, the paper's 1,048,576
   playouts) through ``repro_torch.core.gscpm.gscpm_search``, checking among
@@ -20,6 +20,19 @@ the port's two paths:
   and ``hex_playout`` once per sync iteration (and the one-tile kernels
   never), and that the same search run twice (at 65,536 playouts) gives
   bit-identical trees;
+- the root-parallel forest (``repro_torch.core.root_parallel.
+  gscpm_search_batch``): 8 trees of 32 lanes on 11x11 Hex, three self-play
+  moves (131,072 playouts a member, then ``reroot_forest`` at the visit-sum
+  move and two warm moves of 32,768), checking that each sync iteration
+  launches ``select_descent`` once per selection round and ``hex_playout``
+  once for all members, the re-root retention contract on every member
+  after every move, and at 8,192 playouts a member that each member equals
+  ``gscpm_search`` with its member key, that kernels equal the plain
+  versions and that the forest run twice is bit-identical;
+- Gomoku on the 15x15 board: a 65,536-playout search on 256 lanes, then
+  ``reroot_tree`` and a warm second move, its descent through
+  ``select_descent`` (225 children a node), kernels against plain versions,
+  and a won position that must stop the descent;
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
   weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 4
   tokens after a 128-token prompt, 1,024 playouts on 64 lanes per token,
@@ -44,6 +57,7 @@ import argparse
 import contextlib
 import importlib.metadata
 import json
+import math
 import os
 import subprocess
 import sys
@@ -70,8 +84,27 @@ PAPER_PLAYOUTS = 1_048_576
 SHORT_PLAYOUTS = 65_536
 # CUDA kernels one profiled Hex sync iteration may launch: the descent and
 # the playout are one launch each, the rest (threefry, proposal, expansion,
-# backup) ~500 eager ops
+# backup) ~500 eager ops; the same bound holds a forest's iteration (one
+# pass for all members)
 MAX_KERNELS_PER_ITERATION = 800
+
+# the root-parallel forest path: 8 trees of 32 lanes (256 lanes a launch,
+# the single tree's width), 128 tasks a member (grain 1024 on the first
+# move, the single tree's), 131,072 playouts a member (the paper's budget
+# over the ensemble); then the visit-sum move is played, the forest
+# re-rooted, and two warm moves searched at 32,768 playouts a member
+FOREST = dict(board_size=11, n_workers=32, n_tasks=128, tree_cap=1 << 18,
+              scheduler="fifo", cp=1.0, vl_rounds=1)
+FOREST_TREES = 8
+FOREST_PLAYOUTS = (131_072, 32_768, 32_768)
+# the forest's checks: 4 members at 8,192 playouts each
+FOREST_CHECK = dict(n_trees=4, n_playouts=8192)
+# Gomoku: free-style, the standard 15x15 board, one tree of 256 lanes,
+# 65,536 playouts in 256 tasks, then a re-rooted warm second move
+GOMOKU = dict(game="gomoku", board_size=15, n_workers=256, n_tasks=256,
+              tree_cap=1 << 17, scheduler="fifo", cp=1.0, vl_rounds=1)
+GOMOKU_PLAYOUTS = (65_536, 65_536)
+GOMOKU_CHECK_PLAYOUTS = 8192
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
 # 4 generated tokens, each from a GSCPM search of 1,024 playouts on 64 lanes
@@ -439,7 +472,55 @@ def descent_cases(torch):
         held.n_children[0] -= 1
         cases.append((f"held at the root {size}x{size}", held, b,
                       HexGame(size), W))
+    cases += forest_descent_cases(torch, t11, b11)
     return cases, (t11, b11)
+
+
+def forest_descent_cases(torch, t11, b11):
+    """Forest cases for the descent check (the member axis): 8 members of
+    32 lanes on the 11x11 trees of a real forest search (the forest path's
+    shape); 3 members on 7x7 from three different positions (members at
+    different depths) and the same with one member's root held; the 11x11
+    single tree as a forest of one; three equal-stat 5x5 members of 1, 2
+    and 3 levels with one member held at the root."""
+    from repro_torch import parity, rng
+    from repro_torch.core.gscpm import GSCPMConfig
+    from repro_torch.core.hex import HexGame
+    from repro_torch.core.root_parallel import gscpm_search_batch
+    from repro_torch.core.tree import Tree
+    cases = []
+    cfg = GSCPMConfig(**{**FOREST, "n_playouts": 8192, "tree_cap": 1 << 16})
+    board = cfg.game_obj.init_board("cuda")
+    f11, _ = gscpm_search_batch(board, 1, cfg, rng.key(11, "cuda"),
+                                n_trees=8)
+    cases.append(("forest path shape: 11x11, E=8", f11,
+                  board.expand(8, -1).contiguous(), cfg.game_obj,
+                  cfg.n_workers))
+    boards = torch.stack([partly_filled(torch, 7, e, seed=e)
+                          for e in (49, 30, 12)])
+    cfg7 = GSCPMConfig(board_size=7, n_workers=16, n_tasks=64,
+                       n_playouts=2048, tree_cap=1 << 13)
+    f7, _ = gscpm_search_batch(boards, torch.tensor([1, 1, 1]), cfg7,
+                               rng.key(7, "cuda"))
+    cases.append(("forest 7x7, E=3, three positions", f7, boards,
+                  HexGame(7), 16))
+    held = parity.clone_tree(f7)
+    held.n_children[1, 0] -= 1
+    cases.append(("forest 7x7, E=3, member 1 held at the root", held, boards,
+                  HexGame(7), 16))
+    size = math.isqrt(b11.numel())
+    cases.append((f"forest of one, {size}x{size}",
+                  Tree(*(t[None] for t in t11)), b11[None], HexGame(size),
+                  256))
+    eq_boards = torch.stack([partly_filled(torch, 5, 6, seed=s)
+                             for s in (5, 6, 7)])
+    members = [parity.equal_stat_tree(eq_boards[i], levels, 1, 1024, seed=i)
+               for i, levels in enumerate((1, 2, 3))]
+    eq = Tree(*(torch.stack(f) for f in zip(*members)))
+    eq.n_children[2, 0] -= 1
+    cases.append(("forest equal stats 5x5, E=3, depths 1-3, member 2 held",
+                  eq, eq_boards, HexGame(5), 16))
+    return cases
 
 
 def check_select_descent(torch, cases):
@@ -449,38 +530,51 @@ def check_select_descent(torch, cases):
     gap (0 < gap < TIE_GAP by the plain arithmetic), which are counted."""
     from repro_torch import parity, rng
     from repro_torch.kernels import ref, select_descent as sd
+    from repro_torch.core.tree import forest_member
     lanes = excused = noise_decided = 0
     per_case = {}
     for ci, (name, tree, board, game, W) in enumerate(cases):
-        keys = rng.split(rng.key(100 + ci, "cuda"), W)
+        # a forest's (E, cap + 1) fields take (E, W, 2) keys: one launch
+        E = tree.parent.shape[0] if tree.parent.dim() == 2 else None
+        keys = rng.split(rng.key(100 + ci, "cuda"), W * (E or 1))
+        keys = keys if E is None else keys.view(E, W, 2)
         paths_no_noise = None
         for scale in (0.0, 1e-3):
             for cp in (1.0, 0.35):
+                before = sd.select_descent.launches
                 got = sd.select_descent(tree, board, keys, cp, scale,
                                         game.max_moves + 1)
+                check(sd.select_descent.launches == before + 1,
+                      f"select_descent ({name}): not one launch")
                 want = ref.select_descent(tree, board, game, cp, keys, scale)
                 torch.cuda.synchronize()
                 for a, b in zip(got, want):
                     check(a.dtype == b.dtype and a.shape == b.shape,
                           f"select_descent ({name}): output {a.dtype} "
                           f"{tuple(a.shape)} != plain {b.dtype} {tuple(b.shape)}")
-                partings = parity.descent_partings(tree, got, want, cp, keys,
-                                                   scale)
+                members = [(tree, got, want, keys)] if E is None else [
+                    (forest_member(tree, e), [x[e] for x in got],
+                     [x[e] for x in want], keys[e]) for e in range(E)]
+                partings = [p for t, g, w, k in members
+                            for p in parity.descent_partings(t, g, w, cp, k,
+                                                             scale)]
                 bad = [p for p in partings if not p["excused"]]
                 check(not bad, f"select_descent ({name}, noise {scale}, cp "
                                f"{cp}): parts from the plain version: {bad[:3]}")
                 excused += len(partings)
-                lanes += W
+                lanes += W * (E or 1)
+                flat_paths = got[0].reshape(-1, got[0].shape[-1])
                 if cp == 1.0 and scale == 0.0:
-                    paths_no_noise = got[0]
+                    paths_no_noise = flat_paths
                 elif cp == 1.0:
-                    noise_decided_here = int((got[0] != paths_no_noise)
+                    noise_decided_here = int((flat_paths != paths_no_noise)
                                              .any(dim=1).sum())
                     per_case[name] = {
-                        "lanes": W, "mean_depth": float(got[1].float().mean()),
+                        "lanes": W * (E or 1), "members": E or 1,
+                        "mean_depth": float(got[1].float().mean()),
                         "max_depth": int(got[1].max()),
                         "lanes_the_noise_moved": noise_decided_here}
-                    if name.startswith("equal stats"):
+                    if "equal stats" in name:
                         noise_decided += noise_decided_here
     check(noise_decided > 0, "select_descent: the noise decided no pick on "
                              "the equal-stat trees")
@@ -634,6 +728,14 @@ def phase_kernels(torch):
     sd_bytes, sd_ops = descent_work(torch, t11, paths, depths, C, C,
                                     game.max_moves + 1)
     sd_bound, sd_by = bound_ms(sd_bytes, sd_ops, OPS_PER_S)
+    # and at the forest path's shape: 8 members of 32 lanes, one launch
+    _, f11, fb11, _, fW = next(c for c in cases
+                               if c[0].startswith("forest path shape"))
+    fkeys = rng.split(rng.key(8, "cuda"), 8 * fW).view(8, fW, 2)
+    forest_call = lambda: sd.select_descent(f11, fb11, fkeys, 1.0, 1e-3,
+                                            game.max_moves + 1)
+    sd_forest_ms = time_ms(forest_call)
+    sd_forest_graph = graph_ms(forest_call)
 
     # the playout at the main path's shape: 256 leaf boards a few stones
     # deep (the search's leaves lie 1-8 plies below the empty root)
@@ -662,7 +764,10 @@ def phase_kernels(torch):
          "timed_on": {"tree": "11x11, 65,536-playout search",
                       "mean_lane_depth": float(depths.float().mean()),
                       "max_lane_depth": int(depths.max()),
-                      "bytes": sd_bytes, "operations": sd_ops}},
+                      "bytes": sd_bytes, "operations": sd_ops},
+         "forest_ms": sd_forest_ms, "forest_in_graph_ms": sd_forest_graph,
+         "forest_timed_on": "8 members x 32 lanes, 11x11, 8,192-playout "
+                            "forest search"},
         {"name": "hex_playout", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hex_winner.cu",
          "replaces": "src/repro/kernels/hex_winner.py:46",
@@ -700,14 +805,23 @@ def phase_kernels(torch):
 def count_launches_one_iteration(torch, tree, board, cfg, key):
     """CUDA kernel launches of ONE sync iteration on `tree` (which it
     advances), by torch.profiler; None if the profiler saw no device
-    activity."""
+    activity. A forest (with (E, n) boards) runs one iteration for all its
+    members, with the member streams of ``gscpm_search_batch``."""
     from repro_torch import rng
-    from repro_torch.core import gscpm
+    from repro_torch.core import gscpm, root_parallel
     from torch.profiler import ProfilerActivity, profile
     W = cfg.n_workers
-    task_keys = gscpm.fold_task_keys(
-        key, torch.arange(10_000, 10_000 + W, dtype=torch.int32, device="cuda"))
-    active = torch.ones(W, dtype=torch.bool, device="cuda")
+    task_ids = torch.arange(10_000, 10_000 + W, dtype=torch.int32,
+                            device="cuda")
+    if tree.parent.dim() == 2:
+        E = tree.parent.shape[0]
+        member_keys = gscpm.fold_task_keys(
+            key, torch.arange(E, dtype=torch.int32, device="cuda"))
+        task_keys = root_parallel.fold_member_task_keys(member_keys, task_ids)
+        active = torch.ones((E, W), dtype=torch.bool, device="cuda")
+    else:
+        task_keys = gscpm.fold_task_keys(key, task_ids)
+        active = torch.ones(W, dtype=torch.bool, device="cuda")
     iter_keys = rng.fold_in(task_keys, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -762,21 +876,30 @@ def depth_stats(torch, seen) -> dict:
             "selection_rounds": depths.shape[0]}
 
 
-def phase_search(torch, n_playouts: int):
-    from repro_torch import parity, rng
-    from repro_torch.core import scheduler as sched
-    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
-    from repro_torch.core.tree import check_invariants
+def search_counters():
     from repro_torch.kernels import hex_playout as hp, hex_winner as hw
     from repro_torch.kernels import select_descent as sd, uct_select as us
+    return {"select_descent": sd.select_descent, "hex_playout": hp.hex_playout,
+            "uct_select": us.uct_select, "hex_winner": hw.hex_winner}
+
+
+def sync_iterations(cfg) -> int:
+    from repro_torch.core import scheduler as sched
+    return sum(r.m for r in sched.make_schedule(
+        cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler))
+
+
+def phase_search(torch, n_playouts: int):
+    from repro_torch import parity, rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.core.tree import check_invariants
 
     cap = FULL["tree_cap"] if n_playouts <= SHORT_PLAYOUTS else 1 << 20
     cfg = GSCPMConfig(**{**FULL, "tree_cap": cap}, n_playouts=n_playouts)
     game = cfg.game_obj
     board = game.init_board("cuda")
     key = rng.key(0, "cuda")
-    iterations = sum(r.m for r in sched.make_schedule(
-        cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler))
+    iterations = sync_iterations(cfg)
 
     # warm the allocator and every torch op on a short search first
     gscpm_search(board, 1, GSCPMConfig(**FULL, n_playouts=2048), key)
@@ -784,8 +907,7 @@ def phase_search(torch, n_playouts: int):
     # the same full-width search twice, at the cut-down budget: atomics add
     # only 0, 0.5 and 1, so the two trees must be bit-identical
     short = GSCPMConfig(**FULL, n_playouts=SHORT_PLAYOUTS)
-    short_iters = sum(r.m for r in sched.make_schedule(
-        short.n_playouts, short.n_tasks, short.n_workers, short.scheduler))
+    short_iters = sync_iterations(short)
     with recorded_depths() as seen:
         tree_a, st_a = gscpm_search(board, 1, short, key)
     short_depths = depth_stats(torch, seen)
@@ -803,9 +925,7 @@ def phase_search(torch, n_playouts: int):
     del tree_a, tree_b
 
     # the main path: counts to 0 just before, read just after
-    counters = {"select_descent": sd.select_descent,
-                "hex_playout": hp.hex_playout,
-                "uct_select": us.uct_select, "hex_winner": hw.hex_winner}
+    counters = search_counters()
     for c in counters.values():
         c.launches = 0
     with recorded_depths() as seen:
@@ -907,6 +1027,314 @@ def phase_sequential(torch, n_playouts: int):
          playouts=n_playouts, playouts_per_s=st["playouts_per_s"],
          seconds=st["time_s"], tree_nodes=st["tree_nodes"])
     return st["playouts_per_s"]
+
+
+# ------------------------------------------------------------ hex forest ----
+def paired_iteration_ms(torch, forest, boards, fcfg, tree, board, tcfg,
+                        iters: int = 50, turns: int = 4) -> dict:
+    """Milliseconds per sync iteration (host clock, synchronised) of the
+    forest and of one single tree with as many lanes, in turns (forest,
+    tree, tree, forest, ...) on the same card: the forest's own cost per
+    iteration, apart from the host's drift between phases."""
+    from repro_torch import rng
+    from repro_torch.core import gscpm
+    E, W = forest.parent.shape[0], fcfg.n_workers
+    fkeys = rng.split(rng.key(3, "cuda"), E * W).view(E, W, 2)
+    tkeys = fkeys.view(E * W, 2)
+    f_act = torch.ones((E, W), dtype=torch.bool, device="cuda")
+    t_act = f_act.view(-1)
+    runs = {"forest": [], "single_tree": []}
+    for turn in range(turns):
+        for name in (("forest", "single_tree") if turn % 2 == 0
+                     else ("single_tree", "forest")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                if name == "forest":
+                    gscpm.sync_iteration(forest, boards, fcfg, fcfg.cp,
+                                         rng.fold_in(fkeys, i), f_act)
+                else:
+                    gscpm.sync_iteration(tree, board, tcfg, tcfg.cp,
+                                         rng.fold_in(tkeys, i), t_act)
+            torch.cuda.synchronize()
+            runs[name].append(1e3 * (time.perf_counter() - t0) / iters)
+    return runs
+
+
+def phase_hex_forest(torch):
+    """The root-parallel forest path at full width: 8 trees of 32 lanes,
+    three self-play moves (131,072 playouts a member, then the visit-sum
+    move played, the forest re-rooted and two warm moves of 32,768), each
+    sync iteration one pass for all members."""
+    from repro_torch import parity, rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.core.root_parallel import (check_forest_invariants,
+                                                gscpm_search_batch)
+    from repro_torch.core.tree import (check_reroot_retention, forest_member,
+                                       reroot_forest)
+
+    torch.cuda.reset_peak_memory_stats()
+    E = FOREST_TREES
+    cfgs = [GSCPMConfig(**FOREST, n_playouts=p) for p in FOREST_PLAYOUTS]
+    game = cfgs[0].game_obj
+    key = rng.key(0, "cuda")
+    iters = [sync_iterations(c) for c in cfgs]
+    # warm the allocator and every op on a short forest search first
+    gscpm_search_batch(game.init_board("cuda"), 1,
+                       GSCPMConfig(**{**FOREST, "tree_cap": 1 << 12},
+                                   n_playouts=1024), key, n_trees=E)
+
+    # the main path: counts to 0 just before, read just after
+    counters = search_counters()
+    for c in counters.values():
+        c.launches = 0
+    board, to_move, carry = game.init_board("cuda"), 1, None
+    moves, retained = [], []
+    with recorded_depths() as seen:
+        for mvno, cfg in enumerate(cfgs):
+            root_before = (carry.visits[:, 0].clone() if carry is not None
+                           else torch.zeros(E, device="cuda"))
+            forest, st = gscpm_search_batch(board, to_move, cfg,
+                                            rng.fold_in(key, mvno),
+                                            n_trees=E, forest=carry)
+            mv = st["best_move_sum"]
+            check(st["playouts"] == E * cfg.n_playouts,
+                  f"forest move {mvno}: playout count differs from the budget")
+            check(torch.equal(forest.visits[:, 0] - root_before,
+                              torch.full((E,), float(cfg.n_playouts),
+                                         device="cuda")),
+                  f"forest move {mvno}: a member's root gained other than "
+                  f"its {cfg.n_playouts} playouts")
+            check(0 <= mv < game.n_cells, "forest: best move off the board")
+            moves.append({
+                "move": mvno, "playouts": st["playouts"],
+                "playouts_per_s": st["playouts_per_s"],
+                "seconds": st["time_s"], "sync_iterations": iters[mvno],
+                "ms_per_sync_iteration": 1e3 * st["time_s"] / iters[mvno],
+                "reused_nodes": st.get("reused_nodes", 0),
+                "tree_nodes": st["tree_nodes"],
+                "member_best_moves": st["member_best_moves"],
+                "best_move_sum": mv, "best_move_vote": st["best_move_vote"]})
+            if mvno == len(cfgs) - 1:
+                break
+            carry = reroot_forest(forest, mv)
+            retained.append([check_reroot_retention(
+                forest_member(forest, e), forest_member(carry, e), mv)
+                for e in range(E)])
+            moves[-1]["retained_nodes_per_member"] = retained[-1]
+            board = game.place(board, torch.tensor(mv, device="cuda"),
+                               to_move)
+            to_move = 3 - to_move
+    launches = {name: c.launches for name, c in counters.items()}
+    depths = depth_stats(torch, seen)
+
+    rounds = sum(iters) * FOREST["vl_rounds"]
+    check(launches["select_descent"] == rounds,
+          f"forest: select_descent launches {launches['select_descent']} != "
+          f"selection rounds {rounds} (one launch a round for all members)")
+    check(launches["hex_playout"] == sum(iters),
+          f"forest: hex_playout launches {launches['hex_playout']} != sync "
+          f"iterations {sum(iters)}")
+    check(launches["uct_select"] == 0 and launches["hex_winner"] == 0,
+          f"forest: the one-tile kernels launched: {launches}")
+    check(torch.isfinite(forest.wins).all() and torch.isfinite(forest.visits).all(),
+          "forest: non-finite tree statistics")
+    check_forest_invariants(forest)
+    boards = board.expand(E, -1).contiguous()
+    n_kernels, dev_ms = count_launches_one_iteration(torch, forest, boards,
+                                                     cfgs[-1], key)
+    check(n_kernels is not None and n_kernels <= MAX_KERNELS_PER_ITERATION,
+          f"one forest sync iteration launched {n_kernels} CUDA kernels, more "
+          f"than {MAX_KERNELS_PER_ITERATION}")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    total_playouts = sum(m["playouts"] for m in moves)
+    total_s = sum(m["seconds"] for m in moves)
+    # the forest's iteration against the single tree's at the same 256
+    # lanes, in turns (a single tree cloned from member 0)
+    paired = paired_iteration_ms(
+        torch, forest, boards, cfgs[-1],
+        parity.clone_tree(forest_member(forest, 0)), board,
+        GSCPMConfig(**FULL, n_playouts=FOREST_PLAYOUTS[-1]))
+    del forest, carry
+
+    # checks at a smaller budget: members == single trees with their member
+    # keys, kernels == plain versions, the same forest twice bit-identical
+    n_check = FOREST_CHECK["n_trees"]
+    ccfg = GSCPMConfig(**{**FOREST, "tree_cap": 1 << 16},
+                       n_playouts=FOREST_CHECK["n_playouts"])
+    b0, k1 = game.init_board("cuda"), rng.key(1, "cuda")
+    fa, _ = gscpm_search_batch(b0, 1, ccfg, k1, n_trees=n_check)
+    fb, _ = gscpm_search_batch(b0, 1, ccfg, k1, n_trees=n_check)
+    fields = parity.differing_fields(fa, fb)
+    check(fields == [], f"the same forest run twice differs: {fields}")
+    for e in range(n_check):
+        t, _ = gscpm_search(b0, 1, ccfg, rng.fold_in(k1, e))
+        fields = parity.differing_fields(forest_member(fa, e), t)
+        check(fields == [], f"forest member {e} != gscpm_search with its "
+                            f"member key: {fields}")
+    fp, _ = gscpm_search_batch(b0, 1, ccfg, k1, n_trees=n_check,
+                               plain_kernels=True)
+    parted = [e for e in range(n_check) if parity.differing_fields(
+        forest_member(fa, e), forest_member(fp, e))]
+    explained = (explain_divergence(torch, ccfg, b0, rng.fold_in(k1, parted[0]))
+                 if parted else None)
+    emit("hex_forest", config={**FOREST, "n_trees": E,
+                               "playouts_per_member": list(FOREST_PLAYOUTS)},
+         moves=moves, playouts_per_s=total_playouts / total_s,
+         seconds=total_s, sync_iterations=sum(iters), **depths,
+         launches=launches, cuda_kernels_in_one_iteration=n_kernels,
+         device_ms_in_one_iteration=dev_ms, peak_memory_mb=peak_mb,
+         ms_per_sync_iteration_in_turns=paired,
+         checks={"config": {**FOREST, "tree_cap": 1 << 16, **FOREST_CHECK},
+                 "bit_identical_twice": True,
+                 "members_equal_single_tree_searches": True,
+                 "kernel_vs_plain_trees_equal": not parted,
+                 "members_parted": parted,
+                 "first_divergent_pick": explained})
+    return launches, total_playouts / total_s
+
+
+# ---------------------------------------------------------------- gomoku ----
+def won_position_descent(torch, key):
+    """Won Gomoku positions stop the descent: they have empty cells but no
+    legal move, so no children. On the 15x15 board black (to move) has an
+    open four in the middle row, white a stone in each corner; after a
+    search the root's two winning children are such positions. Two cases,
+    each held against the plain version: the root's other children
+    weighed down with virtual loss and cp = 0, so every lane steps into a
+    winning child and must stop there (depth 1, empties left); and the tree
+    re-rooted at a winning move, where every lane stops at the root."""
+    from repro_torch import parity, rng
+    from repro_torch.core import gomoku as gm
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.core.tree import reroot_tree
+    from repro_torch.kernels import ref, select_descent as sd
+    cfg = GSCPMConfig(**GOMOKU, n_playouts=GOMOKU_CHECK_PLAYOUTS)
+    game, size = cfg.game_obj, cfg.board_size
+    n, mid = size * size, size // 2
+    board = torch.zeros(n, dtype=torch.int8, device="cuda")
+    board[mid * size + mid - 2: mid * size + mid + 2] = 1
+    board[torch.tensor([0, size - 1, n - size, n - 1], device="cuda")] = 2
+    tree, _ = gscpm_search(board, 1, cfg, key)
+    kids = tree.children[0, : int(tree.n_children[0])]
+    wins_at = torch.tensor([mid * size + mid - 3, mid * size + mid + 2],
+                           device="cuda")
+    won_kids = kids[torch.isin(tree.move[kids], wins_at)]
+    check(won_kids.numel() == 2, "gomoku won position: the root lacks a "
+                                 "winning child")
+    steered = parity.clone_tree(tree)
+    steered.vloss[kids] = 1e6
+    steered.vloss[won_kids] = 0.0
+    W = cfg.n_workers
+    keys = rng.split(rng.key(77, "cuda"), W)
+    out = {}
+    for name, t, b, cp, depth in (
+            ("into a winning child", steered, board, 0.0, 1),
+            ("re-rooted at a winning move", reroot_tree(tree, int(
+                tree.move[won_kids[0]])), game.place(
+                board, tree.move[won_kids[0]], 1), 1.0, 0)):
+        got = sd.select_descent(t, b, keys, cp, 1e-3, n + 1)
+        want = ref.select_descent(t, b, game, cp, keys, 1e-3)
+        bad = [p for p in parity.descent_partings(t, got, want, cp, keys,
+                                                  1e-3) if not p["excused"]]
+        check(not bad, f"gomoku won position ({name}): the descent parts "
+                       f"from its plain version: {bad[:3]}")
+        _, depths, leaves, boards, n_empty = got
+        check(bool((depths == depth).all()) and bool((n_empty > 0).all())
+              and bool((t.n_children[leaves] == 0).all())
+              and bool(gm.has_five_batch(boards, 1, gm.GomokuSpec(size)).all()),
+              f"gomoku won position ({name}): a lane did not stop at the won "
+              "position")
+        out[name] = {"lanes": W, "depth": depth,
+                     "leaves": sorted(set(leaves.tolist())),
+                     "empty_cells_left": int(n_empty[0])}
+    return out
+
+
+def phase_gomoku(torch):
+    """Gomoku on the standard 15x15 board: one 65,536-playout search of 256
+    lanes, the tree re-rooted at the played move and a warm second move;
+    its descent through select_descent at 225 children a node, its playout
+    the PyTorch completion-time body on the card."""
+    from repro_torch import parity, rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.core.tree import (check_invariants,
+                                       check_reroot_retention, reroot_tree)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfgs = [GSCPMConfig(**GOMOKU, n_playouts=p) for p in GOMOKU_PLAYOUTS]
+    game = cfgs[0].game_obj
+    key = rng.key(0, "cuda")
+    iters = [sync_iterations(c) for c in cfgs]
+    gscpm_search(game.init_board("cuda"), 1,
+                 GSCPMConfig(**{**GOMOKU, "tree_cap": 1 << 12},
+                             n_playouts=1024), key)
+
+    counters = search_counters()
+    for c in counters.values():
+        c.launches = 0
+    board, to_move, carry = game.init_board("cuda"), 1, None
+    moves = []
+    with recorded_depths() as seen:
+        for mvno, cfg in enumerate(cfgs):
+            tree, st = gscpm_search(board, to_move, cfg,
+                                    rng.fold_in(key, mvno), tree=carry)
+            mv = st["best_move"]
+            check(0 <= mv < game.n_cells, "gomoku: best move off the board")
+            moves.append({
+                "move": mvno, "playouts": st["playouts"],
+                "playouts_per_s": st["playouts_per_s"],
+                "seconds": st["time_s"], "sync_iterations": iters[mvno],
+                "ms_per_sync_iteration": 1e3 * st["time_s"] / iters[mvno],
+                "reused_nodes": st.get("reused_nodes", 0),
+                "reused_visits": st.get("reused_visits", 0.0),
+                "tree_nodes": st["tree_nodes"], "best_move": mv,
+                "root_value": st["root_value"]})
+            if mvno == len(cfgs) - 1:
+                break
+            carry = reroot_tree(tree, mv)
+            moves[-1]["retained_nodes"] = check_reroot_retention(tree, carry,
+                                                                 mv)
+            board = game.place(board, torch.tensor(mv, device="cuda"),
+                               to_move)
+            to_move = 3 - to_move
+    launches = {name: c.launches for name, c in counters.items()}
+    depths = depth_stats(torch, seen)
+    rounds = sum(iters) * GOMOKU["vl_rounds"]
+    check(launches["select_descent"] == rounds,
+          f"gomoku: select_descent launches {launches['select_descent']} != "
+          f"selection rounds {rounds}")
+    check(launches["hex_playout"] == 0 and launches["uct_select"] == 0
+          and launches["hex_winner"] == 0,
+          f"gomoku: a Hex or one-tile kernel launched: {launches}")
+    check_invariants(tree)
+    check(float(tree.visits[0]) == moves[-1]["reused_visits"]
+          + GOMOKU_PLAYOUTS[-1], "gomoku: root visits != retained + playouts")
+    n_kernels, dev_ms = count_launches_one_iteration(torch, tree, board,
+                                                     cfgs[-1], key)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    del tree, carry
+
+    ccfg = GSCPMConfig(**GOMOKU, n_playouts=GOMOKU_CHECK_PLAYOUTS)
+    b0, k5 = game.init_board("cuda"), rng.key(5, "cuda")
+    t_kernel, _ = gscpm_search(b0, 1, ccfg, k5)
+    t_plain, _ = gscpm_search(b0, 1, ccfg, k5, plain_kernels=True)
+    fields = parity.differing_fields(t_kernel, t_plain)
+    explained = explain_divergence(torch, ccfg, b0, k5) if fields else None
+    won = won_position_descent(torch, rng.key(6, "cuda"))
+    total_playouts = sum(m["playouts"] for m in moves)
+    total_s = sum(m["seconds"] for m in moves)
+    emit("gomoku", config={**GOMOKU, "playouts": list(GOMOKU_PLAYOUTS)},
+         moves=moves, playouts_per_s=total_playouts / total_s,
+         seconds=total_s, sync_iterations=sum(iters), **depths,
+         launches=launches, cuda_kernels_in_one_iteration=n_kernels,
+         device_ms_in_one_iteration=dev_ms, peak_memory_mb=peak_mb,
+         kernel_vs_plain={"playouts": GOMOKU_CHECK_PLAYOUTS,
+                          "trees_equal": not fields,
+                          "differing_fields": fields,
+                          "first_divergent_pick": explained},
+         won_position=won)
+    return launches, total_playouts / total_s
 
 
 # -------------------------------------------------------------- LM kernels ----
@@ -1498,21 +1926,27 @@ def main(argv=None) -> int:
         return 0
     launches, rate = phase_search(torch, args.playouts)
     seq_rate = phase_sequential(torch, args.sequential_playouts)
+    forest_launches, forest_rate = phase_hex_forest(torch)
+    gomoku_launches, gomoku_rate = phase_gomoku(torch)
     lm_launches, flash_by_body = phase_lm_search(torch)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
-        # Hex search; uct_select (the LM descent's tile), flash_attention and
-        # rmsnorm on the LM search; hex_winner judges filled boards, which
-        # neither path asks for
+        # Hex search and the Hex forest; select_descent on Gomoku (its
+        # playout has no kernel); uct_select (the LM descent's tile),
+        # flash_attention and rmsnorm on the LM search; hex_winner judges
+        # filled boards, which no path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
+                   "hex_forest": forest_launches.get(r["name"], 0),
+                   "gomoku": gomoku_launches.get(r["name"], 0),
                    "lm_search": lm_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():
             body_record["launches"] = flash_by_body[body]   # the LM path's
     emit("summary", seconds=round(time.perf_counter() - t0, 1),
-         search_playouts_per_s=rate, sequential_playouts_per_s=seq_rate)
+         search_playouts_per_s=rate, sequential_playouts_per_s=seq_rate,
+         forest_playouts_per_s=forest_rate, gomoku_playouts_per_s=gomoku_rate)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

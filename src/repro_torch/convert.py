@@ -39,8 +39,25 @@ def tree_from_numpy(fields: dict, device=None) -> Tree:
         for name, dt in _TREE_DTYPES.items()})
 
 
+def forest_from_numpy(fields: dict, device=None) -> Tree:
+    """The forest twin of ``tree_from_numpy``: the nine fields of an
+    E-member forest (every field with the member axis first, ``n_nodes``
+    (E,)), e.g. ``np.asarray`` of a JAX forest's leaves. The arrays are
+    copied."""
+    forest = tree_from_numpy(fields, device)
+    E = forest.n_nodes.shape
+    if len(E) != 1 or any(t.shape[:1] != E or t.dim() < 2
+                          for t in forest if t is not forest.n_nodes):
+        raise ValueError(
+            "forest_from_numpy: every field needs the member axis first and "
+            f"n_nodes must be (E,); got shapes "
+            f"{ {k: tuple(getattr(forest, k).shape) for k in _TREE_DTYPES} }")
+    return forest
+
+
 def tree_to_numpy(tree: Tree) -> dict:
-    """The nine ``Tree`` fields as numpy arrays (int32 / float32)."""
+    """The nine ``Tree`` fields as numpy arrays (int32 / float32); a
+    forest's keep their member axis."""
     return {name: getattr(tree, name).detach().cpu().numpy()
             for name in _TREE_DTYPES}
 

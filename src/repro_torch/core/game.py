@@ -91,7 +91,7 @@ def register_game(name: str, factory: Callable[[int], Any]) -> None:
 
 def _ensure_builtin_games() -> None:
     # games self-register at import; lazy so game.py itself stays dep-free
-    from repro_torch.core import hex  # noqa: F401
+    from repro_torch.core import gomoku, hex  # noqa: F401
 
 
 def available_games() -> tuple[str, ...]:
@@ -102,10 +102,6 @@ def available_games() -> tuple[str, ...]:
 def make_game(name: str, board_size: int):
     """Resolve a registered game — the ``--game`` flag's single entry point."""
     _ensure_builtin_games()
-    if name == "gomoku" and name not in _REGISTRY:
-        raise NotImplementedError(
-            "game 'gomoku' is not ported yet (ROADMAP.md item A6: "
-            "core/gomoku.py)")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown game {name!r}; registered: {sorted(_REGISTRY)}")

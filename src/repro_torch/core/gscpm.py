@@ -36,7 +36,11 @@ Port of ``repro.core.gscpm``, same public names. What differs in idiom:
   reads the host once per level to know when every lane is done.
 - Where the JAX package lifts a per-lane function with ``vmap``, the batch
   axis is written out (``propose_move`` takes leading axes; the scalar
-  oracles are Python loops over lanes).
+  oracles are Python loops over lanes). Its ``jax.vmap`` over the trees
+  of a root-parallel forest is a leading member axis on every stage
+  (``select_batch``, ``propose_move``, ``expand_batch``, the playout,
+  ``tree.backup_paths``), so ``sync_iteration`` advances a whole forest in
+  one pass (``core.root_parallel``).
 
 This module is game-agnostic: every game-specific computation routes
 through the batched ``Game`` protocol (``repro_torch.core.game``).
@@ -63,9 +67,13 @@ from repro_torch.core.tree import (
     backup_paths,
     best_child,
     child_stat_tile,
+    forest_member,
+    gather_nodes,
     init_tree,
+    member_rows,
     reset_vloss,
     root_value,
+    rows_view,
 )
 from repro_torch.kernels import ops
 
@@ -99,7 +107,8 @@ class GSCPMConfig:
     playout: str = "batched"        # batched (fused (W, cells)) | scalar (oracle)
     # device-side search counters: not ported yet (ROADMAP.md item A9)
     metrics: bool = False
-    # root-parallel ensemble width: not ported yet (ROADMAP.md item A7)
+    # root-parallel ensemble width: a serving-class key, as in the JAX
+    # package; the forest search is core.root_parallel.gscpm_search_batch
     n_trees: int = 1
 
     @property
@@ -118,10 +127,6 @@ def _check_in_slice(cfg: GSCPMConfig, tracer=None, metrics=None) -> None:
         raise NotImplementedError(
             "cfg.metrics / metrics=: the device-side SearchMetrics counters "
             "are not ported yet (ROADMAP.md item A9: obsv/search_metrics.py)")
-    if cfg.n_trees != 1:
-        raise NotImplementedError(
-            "cfg.n_trees > 1: the root-parallel forest is not ported yet "
-            "(ROADMAP.md item A7: core/root_parallel.py)")
     if tracer is not None:
         raise NotImplementedError(
             "tracer=: host-side tracing is not ported yet (ROADMAP.md item "
@@ -192,11 +197,12 @@ def level_noise(noise_keys: torch.Tensor, depths: torch.Tensor, n_slots: int,
 
 def advance_paths(paths: torch.Tensor, depths: torch.Tensor,
                   child: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
-    """Write each stepping lane's chosen child at path level depth + 1."""
-    D = paths.shape[1]
-    cols = torch.arange(D, device=paths.device)[None, :]
-    return torch.where((cols == (depths + 1)[:, None]) & step[:, None],
-                       child[:, None], paths)
+    """Write each stepping lane's chosen child at path level depth + 1
+    (batched over leading axes)."""
+    D = paths.shape[-1]
+    cols = torch.arange(D, device=paths.device)
+    return torch.where((cols == (depths + 1)[..., None]) & step[..., None],
+                       child[..., None], paths)
 
 
 def select_levels(tree: Tree, root_board: torch.Tensor, game, cp,
@@ -211,6 +217,11 @@ def select_levels(tree: Tree, root_board: torch.Tensor, game, cp,
     in place. Bit-identical to per-lane ``select_one`` under the same RNG
     schedule.
 
+    On a forest (tree fields (E, cap + 1), ``root_board`` (E, n),
+    ``noise_keys`` (E, W, 2)) all E·W lanes share each level's one
+    (E·W, C) tile, and every output gains the member axis first, with
+    member-local node ids — what ``jax.vmap(select_batch)`` returns.
+
     The loop ends when every lane is done: one host read per level.
 
     Returns (paths, depths, leaves, boards, n_empty), each batched over W.
@@ -218,36 +229,41 @@ def select_levels(tree: Tree, root_board: torch.Tensor, game, cp,
     max_depth = game.max_moves + 1
     cap = tree.cap
     C = tree.max_children
-    W = noise_keys.shape[0]
+    shape = (*tree.parent.shape[:-1], noise_keys.shape[-2])   # (E,) W
     dev = root_board.device
+    i32 = dict(dtype=torch.int32, device=dev)
 
-    nodes = torch.zeros((W,), dtype=torch.int32, device=dev)
-    boards = root_board[None, :].repeat(W, 1)
-    depths = torch.zeros((W,), dtype=torch.int32, device=dev)
-    paths = torch.full((W, max_depth), cap, dtype=torch.int32, device=dev)
-    paths[:, 0] = 0
-    n_empty = (root_board == EMPTY).sum().to(torch.int32).expand(W)
-    done = torch.zeros((W,), dtype=torch.bool, device=dev)
-    lanes = torch.arange(W, device=dev)
+    nodes = torch.zeros(shape, **i32)
+    boards = root_board[..., None, :].expand(
+        *shape, root_board.shape[-1]).clone()
+    depths = torch.zeros(shape, **i32)
+    paths = torch.full((*shape, max_depth), cap, **i32)
+    paths[..., 0] = 0
+    n_empty = (root_board == EMPTY).sum(-1).to(torch.int32)[..., None].expand(
+        shape)
+    done = torch.zeros(shape, dtype=torch.bool, device=dev)
+    tile = lambda t: t.reshape(-1, C)
 
     while not bool(done.all()):
-        n_kids = tree.n_children[nodes]
+        n_kids = gather_nodes(tree, tree.n_children, nodes)
         terminal = n_empty == 0
         fully = (n_kids == n_empty) & ~terminal
         safe, valid, wins, visits, vloss, ptot = child_stat_tile(tree, nodes)
-        noise = (level_noise(noise_keys, depths, C, noise_scale)
+        noise = (tile(level_noise(noise_keys, depths, C, noise_scale))
                  if noise_scale > 0.0 else None)
-        picks = ops.uct_select(wins, visits, vloss, ptot, valid, cp,
-                               noise=noise, lane_mask=~done)
-        child = safe[lanes, picks]
+        picks = ops.uct_select(tile(wins), tile(visits), tile(vloss),
+                               ptot.reshape(-1), tile(valid), cp,
+                               noise=noise, lane_mask=~done.reshape(-1))
+        child = safe.gather(-1, picks.view(shape).long()[..., None])[..., 0]
         # a held lane may sit on a childless node: its pick is slot 0, the
         # PAD row, whose move is the -1 sentinel. The result of placing it
         # is discarded by `step`; clamp so the scatter stays in bounds.
-        mv = torch.clamp(tree.move[child], min=0)
-        new_boards = game.place(boards, mv, tree.to_move[nodes])
+        mv = torch.clamp(gather_nodes(tree, tree.move, child), min=0)
+        new_boards = game.place(boards, mv,
+                                gather_nodes(tree, tree.to_move, nodes))
         step = fully & (depths < max_depth - 2) & ~done
         nodes = torch.where(step, child, nodes)
-        boards = torch.where(step[:, None], new_boards, boards)
+        boards = torch.where(step[..., None], new_boards, boards)
         paths = advance_paths(paths, depths, child, step)
         depths = torch.where(step, depths + 1, depths)
         n_empty = torch.where(step, n_empty - 1, n_empty)
@@ -258,10 +274,11 @@ def select_levels(tree: Tree, root_board: torch.Tensor, game, cp,
 def select_batch(tree: Tree, root_board: torch.Tensor, game, cp,
                  noise_keys: torch.Tensor, noise_scale: float):
     """One selection round of W lanes: ``kernels.ops.select_descent`` — on
-    the card ONE launch of the descent kernel, with no host read; on the
-    CPU the lockstep level loop ``select_levels``. Both give the same
-    (paths, depths, leaves, boards, n_empty), bit-identical to per-lane
-    ``select_one`` under the same RNG schedule."""
+    the card ONE launch of the descent kernel, with no host read (for a
+    forest too: one launch for all E·W lanes); on the CPU the lockstep
+    level loop ``select_levels``. Both give the same (paths, depths,
+    leaves, boards, n_empty), bit-identical to per-lane ``select_one``
+    under the same RNG schedule."""
     return ops.select_descent(tree, root_board, game, cp,
                               noise_keys.contiguous(), noise_scale)
 
@@ -275,18 +292,21 @@ def propose_move(tree: Tree, leaf: torch.Tensor, board: torch.Tensor,
     there, so won/drawn positions are evaluated in place, never grown.
 
     Batched over leading axes: ``leaf`` (...), ``board`` (..., n_cells),
-    ``key`` (..., 2). No host read.
+    ``key`` (..., 2); on a forest the leading axes start with the member
+    axis and ``leaf`` is member-local. No host read.
     """
     n_cells = game.n_cells
     C = tree.max_children
     cap = tree.cap
     dev = board.device
     legal = game.legal_mask(board)
-    slots = tree.children[leaf]                                   # (..., C)
+    rows = member_rows(tree, leaf)
+    slots = rows_view(tree, tree.children)[rows]                  # (..., C)
     valid = (torch.arange(C, dtype=torch.int32, device=dev)
-             < tree.n_children[leaf][..., None])
+             < rows_view(tree, tree.n_children)[rows][..., None])
     tried_moves = torch.where(
-        valid, tree.move[torch.where(valid, slots, cap)], n_cells)
+        valid, gather_nodes(tree, tree.move, torch.where(valid, slots, cap)),
+        n_cells)
     tried = torch.zeros((*legal.shape[:-1], n_cells + 1), dtype=torch.bool,
                         device=dev)
     tried.scatter_(-1, tried_moves.long(), True)
@@ -306,38 +326,67 @@ def expand_batch(tree: Tree, leaves: torch.Tensor, moves: torch.Tensor,
     atomic child index: proposals are sorted by (leaf, move) key, duplicates
     collapse onto their first occurrence, slots are rank-allocated.
 
-    Writes into ``tree`` in place and returns it. Every masked write lands
-    on the PAD row ``cap``; duplicate writes there may land in any order,
-    which is harmless because they all carry the pad row's own values and
-    the hygiene writes below restore it anyway.
+    On a forest (``leaves``, ``moves``, ``active`` of shape (E, W),
+    member-local leaves) all E·W proposals go through ONE sort whose leading
+    key is the member (a member's leaf ``l`` sorts as row ``e·(cap + 1) +
+    l``); ranks are counted per member, each member allocates from its own
+    ``n_nodes``, and no two members share a slot or a counter — within a
+    member the order, and so the lane that wins a collision, is the single
+    tree's.
+
+    Writes into ``tree`` in place and returns it with the (W,) / (E, W)
+    member-local new ids (``cap`` where nothing was allocated). Every
+    masked write lands on a PAD row; duplicate writes there may land in any
+    order, which is harmless because they all carry the pad row's own
+    values and the hygiene writes below restore it anyway.
     """
-    W = leaves.shape[0]
     cap = tree.cap
+    E = tree.parent.shape[0] if tree.parent.dim() == 2 else 1
     dev = leaves.device
     INVALID = 2**30
+    if E * (cap + 1) > INVALID:
+        raise ValueError(f"expand_batch: {E} members of {cap + 1} rows exceed "
+                         f"the sort key's {INVALID} rows")
 
-    leaves = leaves.to(torch.int32)
-    moves = moves.to(torch.int32)
-    valid = (moves >= 0) & active
-    leaf_k = torch.where(valid, leaves, INVALID)
+    shape = leaves.shape
+    leaves = leaves.to(torch.int32).reshape(-1)
+    moves = moves.to(torch.int32).reshape(-1)
+    N = leaves.numel()
+    member = torch.arange(N, dtype=torch.int32, device=dev) // (N // E)
+    base_row = member * (cap + 1)
+    valid = (moves >= 0) & active.reshape(-1)
+    leaf_k = torch.where(valid, leaves + base_row, INVALID)
     move_k = torch.where(valid, moves, INVALID)
-    # lexicographic (leaf, move) order from ONE stable sort on a packed
-    # 64-bit key: both halves are <= 2**30, so leaf * 2**31 + move is exact
+    # lexicographic (member, leaf, move) order from ONE stable sort on a
+    # packed 64-bit key: both halves are <= 2**30, so row * 2**31 + move is
+    # exact
     packed = leaf_k.to(torch.int64) * (1 << 31) + move_k.to(torch.int64)
     _, order = torch.sort(packed, stable=True)
     leaf_s, move_s = leaf_k[order], move_k[order]
+    member_s, base_s = member[order], base_row[order]
     valid_s = leaf_s < INVALID
     head = torch.ones((1,), dtype=torch.bool, device=dev)
     first = torch.cat(
         [head, (leaf_s[1:] != leaf_s[:-1]) | (move_s[1:] != move_s[:-1])]
     ) & valid_s
-    # dup shares first's rank
-    uniq_rank = torch.cumsum(first, dim=0, dtype=torch.int32) - 1
-    can = (tree.n_nodes + uniq_rank < cap) & valid_s
+    # dup shares first's rank; g_rank counts over all members, uniq_rank
+    # within the lane's member (less the uniques of the members before it)
+    g_rank = torch.cumsum(first, dim=0, dtype=torch.int32) - 1
+    if E > 1:
+        n_uniq = torch.zeros((E,), dtype=torch.int32, device=dev).index_add_(
+            0, member_s, first.to(torch.int32))
+        before = torch.cumsum(n_uniq, dim=0, dtype=torch.int32) - n_uniq
+        uniq_rank = g_rank - before[member_s]
+    else:
+        uniq_rank = g_rank
+    n_nodes = tree.n_nodes.view(-1)                # (E,), a view
+    nn_s = n_nodes[member_s]
+    can = (nn_s + uniq_rank < cap) & valid_s
     alloc = first & can
-    new_id_s = torch.where(can, tree.n_nodes + uniq_rank, cap)
+    new_id_s = torch.where(can, nn_s + uniq_rank, cap)        # member-local
 
-    leaf_s = torch.where(valid_s, leaf_s, cap)
+    pad_s = base_s + cap                           # the lane's member's PAD
+    leaf_s = torch.where(valid_s, leaf_s, pad_s)   # a row of the flat view
     move_s = torch.where(valid_s, move_s, NO_NODE)
 
     # child-slot = existing n_children[leaf] + rank of this unique within its
@@ -346,35 +395,38 @@ def expand_batch(tree: Tree, leaves: torch.Tensor, moves: torch.Tensor,
         [torch.full((1,), -1, dtype=torch.int32, device=dev), leaf_s[:-1]])
     group_start = leaf_s != leaf_prev
     start_rank = torch.cummax(
-        torch.where(group_start, uniq_rank, -1), dim=0).values
-    within = uniq_rank - start_rank
-    slot = torch.clamp(tree.n_children[leaf_s] + within, 0,
+        torch.where(group_start, g_rank, -1), dim=0).values
+    within = g_rank - start_rank
+    parent_f, move_f = rows_view(tree, tree.parent), rows_view(tree, tree.move)
+    to_move_f = rows_view(tree, tree.to_move)
+    children_f = rows_view(tree, tree.children)
+    n_children_f = rows_view(tree, tree.n_children)
+    slot = torch.clamp(n_children_f[leaf_s] + within, 0,
                        tree.max_children - 1)
 
-    tgt = torch.where(alloc, new_id_s, cap)
-    src_leaf = torch.where(alloc, leaf_s, cap)
+    tgt = torch.where(alloc, new_id_s + base_s, pad_s)
+    src_leaf = torch.where(alloc, leaf_s, pad_s)
     slot0 = torch.where(alloc, slot, 0)
-    child_to_move = torch.where(alloc, 3 - tree.to_move[leaf_s], 0)
-    child_val = torch.where(alloc, new_id_s, tree.children[src_leaf, slot0])
-    n_new = alloc.sum().to(torch.int32)
+    child_to_move = torch.where(alloc, 3 - to_move_f[leaf_s], 0)
+    child_val = torch.where(alloc, new_id_s, children_f[src_leaf, slot0])
 
-    tree.parent[tgt] = torch.where(alloc, leaf_s, NO_NODE)
-    tree.move[tgt] = torch.where(alloc, move_s, NO_NODE)
-    tree.to_move[tgt] = child_to_move
-    tree.children[src_leaf, slot0] = child_val
-    tree.n_children.index_add_(0, src_leaf, alloc.to(torch.int32))
+    parent_f[tgt] = torch.where(alloc, leaf_s - base_s, NO_NODE)
+    move_f[tgt] = torch.where(alloc, move_s, NO_NODE)
+    to_move_f[tgt] = child_to_move
+    children_f[src_leaf, slot0] = child_val
+    n_children_f.index_add_(0, src_leaf, alloc.to(torch.int32))
 
-    # hygiene: pad row never owns state
-    tree.parent[cap] = NO_NODE
-    tree.move[cap] = NO_NODE
-    tree.n_children[cap] = 0
-    tree.n_nodes.add_(n_new)
+    # hygiene: pad rows never own state
+    tree.parent[..., cap] = NO_NODE
+    tree.move[..., cap] = NO_NODE
+    tree.n_children[..., cap] = 0
+    n_nodes.index_add_(0, member_s, alloc.to(torch.int32))
 
     # map back to worker order: duplicates get their first occurrence's id
     per_sorted = torch.where(valid_s & can, new_id_s, cap)
-    new_ids = torch.zeros((W,), dtype=torch.int32, device=dev)
+    new_ids = torch.zeros((N,), dtype=torch.int32, device=dev)
     new_ids[order] = per_sorted
-    return tree, new_ids
+    return tree, new_ids.view(shape)
 
 
 # ---------------------------------------------------------- sync iteration ----
@@ -390,28 +442,42 @@ def sync_iteration(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
     the fused (W, cells) ``game.playout_batch`` and
     ``cfg.playout == "scalar"`` keeps the per-lane ``game.playout_scalar``
     oracle. Updates ``tree`` in place and returns it.
+
+    On a forest (tree fields (E, cap + 1), ``root_board`` (E, n),
+    ``iter_keys`` (E, W, 2), ``active`` (E, W)) the iteration runs ONE pass
+    for all E members — one descent per selection round and one (E·W,
+    cells) playout — and member e evolves exactly as the single tree
+    would with its own board, keys and lanes (the port's ``jax.vmap``).
     """
     _check_in_slice(cfg, metrics=metrics)
     game = cfg.game_obj
     W = cfg.n_workers
+    lead = tree.parent.shape[:-1]        # () or (E,)
     R = max(1, min(cfg.vl_rounds, W))
     while W % R != 0:  # R is a python int
         R -= 1
     Wr = W // R
 
+    def scalar_lanes(t, board, k_noise, k_move):
+        lanes = []
+        for w in range(Wr):
+            path, depth, leaf, b, _ = select_one(
+                t, board, game, cp, k_noise[w], cfg.select_noise)
+            mv = propose_move(t, leaf, b, game, k_move[w])
+            lanes.append((path, depth, leaf, b, mv))
+        return tuple(torch.stack(x) for x in zip(*lanes))
+
     def select_group(keys_g):
         # identical RNG schedule on both paths: per-lane (noise, move,
         # playout) keys come from one split of the lane's iteration key
         ks = rng.split(keys_g, 3)
-        k_noise, k_move, k_po = ks[:, 0], ks[:, 1], ks[:, 2]
-        if cfg.descent == "scalar":
-            lanes = []
-            for w in range(Wr):
-                path, depth, leaf, board, _ = select_one(
-                    tree, root_board, game, cp, k_noise[w], cfg.select_noise)
-                mv = propose_move(tree, leaf, board, game, k_move[w])
-                lanes.append((path, depth, leaf, board, mv))
-            out = tuple(torch.stack(x) for x in zip(*lanes))
+        k_noise, k_move, k_po = ks[..., 0, :], ks[..., 1, :], ks[..., 2, :]
+        if cfg.descent == "scalar" and lead:
+            per = [scalar_lanes(forest_member(tree, e), root_board[e],
+                                k_noise[e], k_move[e]) for e in range(lead[0])]
+            out = tuple(torch.stack(x) for x in zip(*per))
+        elif cfg.descent == "scalar":
+            out = scalar_lanes(tree, root_board, k_noise, k_move)
         else:
             paths, depths, leaves, boards, _ = select_batch(
                 tree, root_board, game, cp, k_noise, cfg.select_noise)
@@ -419,52 +485,55 @@ def sync_iteration(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
             out = (paths, depths, leaves, boards, mvs)
         return (*out, k_po)
 
-    keys_r = iter_keys.reshape(R, Wr, 2)
-    active_r = active.reshape(R, Wr)
+    keys_r = iter_keys.reshape(*lead, R, Wr, 2)
+    active_r = active.reshape(*lead, R, Wr)
 
     # virtual loss only influences the NEXT selection round of this
     # iteration; with a single round (R == 1) the add+reset pair is dead
     # weight — skipping it is bit-identical (no RNG is consumed)
     outs = []
     for r in range(R):
-        out = select_group(keys_r[r])
+        out = select_group(keys_r[..., r, :, :])
         if R > 1:
-            add_vloss(tree, out[0], active_r[r].to(torch.float32),
+            add_vloss(tree, out[0], active_r[..., r, :].to(torch.float32),
                       cfg.virtual_loss)
         outs.append(out)
     if R > 1:
         reset_vloss(tree)
 
+    lane_axis = len(lead)
     paths, depths, leaves, boards, moves, po_keys = (
-        torch.cat(x) for x in zip(*outs))
+        torch.cat(x, dim=lane_axis) for x in zip(*outs))
 
     tree, new_ids = expand_batch(tree, leaves, moves, active)
 
     expanded = new_ids < tree.cap
     # the new node joins the backup path
-    cols = torch.arange(paths.shape[1], device=paths.device)[None, :]
-    paths = torch.where(
-        cols == (depths + 1)[:, None],
-        torch.where(expanded, new_ids, tree.cap)[:, None],
-        paths)
+    paths = advance_paths(paths, depths,
+                          torch.where(expanded, new_ids, tree.cap),
+                          torch.ones_like(expanded))
 
     # place each lane's proposed move (if any) — game-agnostic given the
     # shared board convention; lanes that proposed nothing evaluate the
     # leaf position itself (terminal leaves included)
-    movers = tree.to_move[leaves]
+    movers = gather_nodes(tree, tree.to_move, leaves)
     do = moves >= 0
     placed = game.place(boards, torch.clamp(moves, min=0), movers)
-    b2 = torch.where(do[:, None], placed, boards)
+    b2 = torch.where(do[..., None], placed, boards)
     nxt = torch.where(do, 3 - movers, movers)
+    n = b2.shape[-1]
     if cfg.playout == "scalar":
-        # per-lane oracle: W scalar playouts, one after the other
+        # per-lane oracle: one scalar playout after the other
         winners = torch.stack([
-            game.playout_scalar(b2[w], nxt[w], po_keys[w]) for w in range(W)])
+            game.playout_scalar(b, t, k) for b, t, k in zip(
+                b2.reshape(-1, n), nxt.reshape(-1), po_keys.reshape(-1, 2))])
     else:
-        # fused leaf evaluation: ONE batched (W, cells) playout stage for
-        # all W lanes (bit-identical values to the oracle above)
-        winners = game.playout_batch(b2, nxt, po_keys)
-    return backup_paths(tree, paths, winners, active.to(torch.float32))
+        # fused leaf evaluation: ONE batched (E·W, cells) playout stage for
+        # every lane of every member (bit-identical values to the oracle)
+        winners = game.playout_batch(b2.reshape(-1, n), nxt.reshape(-1),
+                                     po_keys.reshape(-1, 2))
+    return backup_paths(tree, paths, winners.view(nxt.shape),
+                        active.to(torch.float32))
 
 
 def run_chunk(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
@@ -475,7 +544,8 @@ def run_chunk(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
     ``m`` and ``cp`` are run-time values: a Python loop of ``m`` eager
     iterations, nothing compiled, so grain/Cp sweeps change no code path.
     The tree is updated IN PLACE (the port's counterpart of the JAX
-    package's buffer donation) and returned.
+    package's buffer donation) and returned. A forest with (E, W, 2)
+    ``task_keys`` and (E, W) ``active`` runs all members in each iteration.
     """
     _check_in_slice(cfg, metrics=metrics)
     for i in range(int(m)):

@@ -62,9 +62,9 @@ ARGS = {
     # boards, W, size, rounds, out, stream
     "repro_hex_winner": "PiiiPP",
     # children, n_children, wins, visits, vloss, move, to_move, root_board,
-    # noise_keys, cp, noise_scale, max_depth, W, C, n, cap, paths, depths,
-    # leaves, n_empty, boards, stream
-    "repro_select_descent": "9Pff5i6P",
+    # noise_keys, cp, noise_scale, max_depth, E, W, C, n, cap, paths,
+    # depths, leaves, n_empty, boards, stream
+    "repro_select_descent": "9Pff6i6P",
     # boards, to_move, keys, W, size, rounds, out, filled (0: none), stream
     "repro_hex_playout": "3P3i3P",
     # q, k, v, o, B, H, Hkv, S, D, scale, causal, dtype, then the (batch,

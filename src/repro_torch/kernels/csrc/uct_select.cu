@@ -117,15 +117,29 @@ __global__ void select_descent_kernel(
     const int* __restrict__ to_move,
     const signed char* __restrict__ root_board,
     const long long* __restrict__ noise_keys, float cp, float noise_scale,
-    int max_depth, int W, int C, int n, int cap, int* __restrict__ paths,
-    int* __restrict__ depths, int* __restrict__ leaves,
-    int* __restrict__ n_empty, signed char* __restrict__ boards) {
+    int max_depth, int E, int W, int C, int n, int cap,
+    int* __restrict__ paths, int* __restrict__ depths,
+    int* __restrict__ leaves, int* __restrict__ n_empty,
+    signed char* __restrict__ boards) {
   __shared__ signed char board_of[kWarpsPerBlock][kMaxCells];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int w = blockIdx.x * kWarpsPerBlock + warp;
-  if (w >= W) return;  // whole warp leaves together
+  const int w = blockIdx.x * kWarpsPerBlock + warp;  // lane of the forest
+  if (w >= E * W) return;  // whole warp leaves together
   signed char* board = board_of[warp];
+
+  // lane w belongs to member w / W: every tree read is offset by the
+  // member's (cap + 1) rows; node ids stay member-local
+  const int e = w / W;
+  const size_t rows = static_cast<size_t>(e) * (cap + 1);
+  children += rows * C;
+  n_children += rows;
+  wins += rows;
+  visits += rows;
+  vloss += rows;
+  move += rows;
+  to_move += rows;
+  root_board += static_cast<size_t>(e) * n;
 
   int empties = 0;
   for (int i = lane; i < n; i += 32) {
@@ -244,7 +258,7 @@ struct DescentArgs {
   const void* root_board;
   const void* noise_keys;
   float cp, noise_scale;
-  int max_depth, W, C, n, cap;
+  int max_depth, E, W, C, n, cap;
   void* paths;
   void* depths;
   void* leaves;
@@ -261,10 +275,14 @@ extern "C" int repro_select_descent_args_bytes() {
 extern "C" int repro_select_descent(const void* packed) {
   DescentArgs a;
   memcpy(&a, packed, sizeof a);
-  if (a.W <= 0 || a.C <= 0 || a.n <= 0 || a.n > kMaxCells || a.cap <= 0 ||
-      a.max_depth <= 0)
+  if (a.E <= 0 || a.W <= 0 || a.C <= 0 || a.n <= 0 || a.n > kMaxCells ||
+      a.cap <= 0 || a.max_depth <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (a.W + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long lanes = static_cast<long long>(a.E) * a.W;
+  if (lanes > INT_MAX - kWarpsPerBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks =
+      static_cast<int>((lanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
   select_descent_kernel<<<blocks, kWarpsPerBlock * 32, 0,
                           static_cast<cudaStream_t>(a.stream)>>>(
       static_cast<const int*>(a.children),
@@ -274,7 +292,7 @@ extern "C" int repro_select_descent(const void* packed) {
       static_cast<const int*>(a.to_move),
       static_cast<const signed char*>(a.root_board),
       static_cast<const long long*>(a.noise_keys), a.cp, a.noise_scale,
-      a.max_depth, a.W, a.C, a.n, a.cap, static_cast<int*>(a.paths),
+      a.max_depth, a.E, a.W, a.C, a.n, a.cap, static_cast<int*>(a.paths),
       static_cast<int*>(a.depths), static_cast<int*>(a.leaves),
       static_cast<int*>(a.n_empty), static_cast<signed char*>(a.boards));
   return static_cast<int>(cudaGetLastError());

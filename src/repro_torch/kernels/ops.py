@@ -7,7 +7,12 @@ there is no fallback. ``plain_versions()`` is the one explicit override: a
 context inside which CUDA tensors too go to the plain versions, so a whole
 search can be run both ways on the card and compared.
 
-Call sites (``core/gscpm.py``, ``core/hex.py``, ``models/attention.py``,
+The Gomoku win tests (``gomoku_winner``, ``gomoku_first_winner``) are the
+exception: the JAX package has no Pallas body for them, only one jitted jnp
+body for the TPU and the CPU alike, so their PyTorch bodies are the
+dispatch target on both devices — not a fallback.
+
+Call sites (``core/gscpm.py``, ``core/hex.py``, ``core/gomoku.py``, ``models/attention.py``,
 ``models/layers.py``, ``serve/mcts_decode.py``) go through these wrappers
 only.
 """
@@ -95,6 +100,27 @@ def hex_winner(boards, size: int):
     if boards.is_cuda and not _force_plain:
         return _hw.hex_winner(boards, size)
     return _ref.hex_winner(boards, size)
+
+
+def gomoku_winner(boards, size: int):
+    """Batched Gomoku winner of TERMINAL boards (``core.gomoku.
+    winner_scan_batch``): (W, size*size) int8 -> (W,) int8 in {0 draw, 1,
+    2}. Four static-roll window scans; the PyTorch body is the target on
+    the card and the CPU alike (module docstring)."""
+    from repro_torch.core import gomoku as gm
+    return gm.winner_scan_batch(boards, gm.GomokuSpec(size))
+
+
+def gomoku_first_winner(filled, times, size: int):
+    """Gomoku playout outcome by completion time over a random fill — the
+    playout phase's dispatch point for ``gomoku``, as ``hex_playout`` is for
+    ``hex``. filled: (W, size*size) int8 filled boards; times: (W,
+    size*size) int32 fill rank per cell (-1 for pre-playout stones); returns
+    (W,) int8 in {0 draw, 1, 2}. The PyTorch body
+    (``core.gomoku.first_completion_winner``) is the target on both
+    devices."""
+    from repro_torch.core import gomoku as gm
+    return gm.first_completion_winner(filled, times, gm.GomokuSpec(size))
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,

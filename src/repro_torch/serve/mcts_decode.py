@@ -25,9 +25,10 @@ iterations: ``n_playouts`` UCT iterations in ``n_tasks`` grains, run by
 The prompt is prefilled once per search, tiled over the W lanes; on the
 card prefill runs the flash-attention kernel (``use_flash``) and every norm
 the rmsnorm kernel. Out of this slice: ``mcts_decode_search_batch``,
-``run_chunk_batch`` and ``mcts_generate_batch`` need the root-parallel
-forest (ROADMAP.md item A7); ``batch_extras`` (vlm patches) the non-dense
-families (A12).
+``run_chunk_batch`` and ``mcts_generate_batch``, B token trees searched as
+one forest (ROADMAP.md item A12b, the LM batch twins; the forest itself,
+``core.root_parallel``, is ported); ``batch_extras`` (vlm patches) the
+non-dense families (A12).
 """
 
 from __future__ import annotations
@@ -296,8 +297,8 @@ def run_chunk(tree: Tree, params, mcfg: ModelConfig, cfg: MCTSDecodeConfig,
 
 def run_chunk_batch(*args, **kw):
     raise NotImplementedError(
-        "run_chunk_batch: B concurrent token trees need the root-parallel "
-        "forest, not ported yet (ROADMAP.md item A7)")
+        "run_chunk_batch: B concurrent token trees as one forest are not "
+        "ported yet (ROADMAP.md item A12b, the LM batch twins)")
 
 
 # ------------------------------------------------------------------ driver ----
@@ -371,14 +372,14 @@ def mcts_decode_search(params, mcfg: ModelConfig, prompt, cfg: MCTSDecodeConfig,
 
 def mcts_decode_search_batch(*args, **kw):
     raise NotImplementedError(
-        "mcts_decode_search_batch: B concurrent requests need the "
-        "root-parallel forest, not ported yet (ROADMAP.md item A7)")
+        "mcts_decode_search_batch: B concurrent requests as one forest are "
+        "not ported yet (ROADMAP.md item A12b, the LM batch twins)")
 
 
 def mcts_generate_batch(*args, **kw):
     raise NotImplementedError(
-        "mcts_generate_batch: runs on mcts_decode_search_batch, which needs "
-        "the root-parallel forest (ROADMAP.md item A7)")
+        "mcts_generate_batch: runs on mcts_decode_search_batch, not ported "
+        "yet (ROADMAP.md item A12b, the LM batch twins)")
 
 
 def mcts_generate(params, mcfg: ModelConfig, prompt, n_tokens: int,

@@ -240,12 +240,14 @@ def test_place_legal_replay_probe_match():
 
 
 def test_registry_and_kernel_wrapper_contract():
-    assert tgame.available_games() == ("hex",)
+    assert tgame.available_games() == ("gomoku", "hex")
     g = tgame.make_game("hex", 7)
     assert g == thx.HexGame(7) and g != thx.HexSpec(7)
     assert hash(g) == hash(thx.HexGame(7))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgame.make_game("gomoku", 7)
+    # two games of one size are different games (hash-by-type stamp)
+    gm = tgame.make_game("gomoku", 7)
+    assert gm != g and gm == tgame.make_game("gomoku", 7)
+    assert hash(gm) != hash(g) and len({g, gm}) == 2
     with pytest.raises(ValueError):
         tgame.make_game("chess", 8)
     boards = torch.ones((4, 25), dtype=torch.int8)

@@ -14,6 +14,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import rng
 from repro_torch.core import gscpm as tg
 from repro_torch.core import mcts as tmcts
+from repro_torch.core import root_parallel as trp
 from repro_torch.core import tree as tt
 from repro_torch.launch import search as tsearch
 from repro_torch.launch import serve as tserve
@@ -48,7 +49,7 @@ def test_port_files_are_found():
             "chip_smoke.py", "convert.py", "search.py", "mcts_decode.py",
             "attention.py", "transformer.py", "api.py", "layers.py",
             "common.py", "flash_attention.py", "rmsnorm.py", "engine.py",
-            "tpfifo.py", "serve.py"} <= names
+            "tpfifo.py", "serve.py", "gomoku.py", "root_parallel.py"} <= names
 
 
 # PyTorch's fused attention and norm are the LM kernels' library yardsticks:
@@ -139,6 +140,28 @@ def test_device_none_means_the_gpu_and_raises_without_one():
     assert st["playouts"] == 32
 
 
+def test_forest_and_gomoku_entry_points_mean_the_gpu_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the rule is checked where it has none")
+    cfg = tg.GSCPMConfig(board_size=5, n_playouts=16, n_tasks=2, n_workers=4,
+                         tree_cap=64)
+    board = torch.zeros(25, dtype=torch.int8)
+    key = rng.key(0, "cpu")
+    with pytest.raises(NO_GPU):
+        trp.gscpm_search_batch(board, 1, cfg, key, n_trees=2)
+    with pytest.raises(NO_GPU):
+        tt.init_forest(2, 64, 25, 1)
+    with pytest.raises(NO_GPU):
+        trp.init_sync_state(2, 25)
+    with pytest.raises(NO_GPU):
+        tg.GSCPMConfig(game="gomoku", board_size=5).game_obj.init_board()
+    with pytest.raises(NO_GPU):
+        tsearch.main(["--size", "5", "--playouts", "16", "--trees", "2"])
+    forest, st = trp.gscpm_search_batch(board, 1, cfg, key, n_trees=2,
+                                        device="cpu")
+    assert forest.parent.device.type == "cpu" and st["playouts"] == 32
+
+
 def test_lm_entry_points_mean_the_gpu_and_raise_without_one():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU; the rule is checked where it has none")
@@ -170,9 +193,7 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     assert '"ok"' not in out.stdout and out.stdout.strip() == ""
 
 
-@pytest.mark.parametrize("over,item", [
-    (dict(metrics=True), "A9"), (dict(n_trees=2), "A7"),
-    (dict(game="gomoku"), "A6")])
+@pytest.mark.parametrize("over,item", [(dict(metrics=True), "A9")])
 def test_out_of_slice_config_raises_not_implemented(over, item):
     cfg = tg.GSCPMConfig(**{**dict(board_size=5, n_playouts=16, n_tasks=2,
                                    n_workers=4, tree_cap=64), **over})
@@ -195,19 +216,55 @@ def test_out_of_slice_arguments_raise_not_implemented():
         tg.sync_iteration(tree, board, cfg, 1.0, keys, active, metrics=object())
     with pytest.raises(NotImplementedError, match="A9"):
         tg.run_chunk(tree, board, cfg, keys, active, 1, 1.0, object())
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmcts.uct_search(board, 1, 4, key, board_size=5, game="gomoku",
-                         device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        trp.gscpm_search_batch(board, 1, cfg, key, n_trees=2, tracer=object(),
+                               device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        trp.run_chunk_forest(tt.init_forest(2, 64, 25, 1, device="cpu"),
+                             board.expand(2, -1), cfg, keys.expand(2, -1, -1),
+                             active.expand(2, -1), 1, 1.0, object())
+
+
+@pytest.mark.parametrize("over", [dict(n_trees=2), dict(game="gomoku")],
+                         ids=["n_trees", "gomoku"])
+def test_config_fields_of_this_slice_run(over):
+    """``n_trees`` is a serving-class key that the single-tree search does
+    not read (as in the JAX package); Gomoku runs through the protocol."""
+    cfg = tg.GSCPMConfig(**{**dict(board_size=5, n_playouts=16, n_tasks=2,
+                                   n_workers=4, tree_cap=64), **over})
+    tree, st = tg.gscpm_search(torch.zeros(25, dtype=torch.int8), 1, cfg,
+                               rng.key(0, "cpu"), device="cpu")
+    assert float(tree.visits[0]) == st["playouts"] == 16
+    seq, _ = tmcts.uct_search(torch.zeros(25, dtype=torch.int8), 1, 4,
+                              rng.key(0, "cpu"), board_size=5, game=cfg.game,
+                              device="cpu")
+    assert float(seq.visits[0]) == 4
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--trees", "2"], "A7"), (["--moves", "2"], "A8"),
-    (["--metrics"], "A9"), (["--trace", "out.json"], "A9"),
-    (["--game", "gomoku"], "A6")])
+    (["--metrics"], "A9"), (["--trace", "out.json"], "A9")])
 def test_launcher_refuses_out_of_slice_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tsearch.main(["--size", "5", "--playouts", "16", "--device", "cpu",
                       *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--game", "gomoku", "--moves", "2"], ["--trees", "3", "--moves", "2"],
+    ["--cold", "--moves", "2"], ["--reuse-tree", "--trees", "2"]],
+    ids=["gomoku", "forest", "cold", "reuse-forest"])
+def test_launcher_runs_this_slices_flags(flags, capsys):
+    st = tsearch.main(["--size", "5", "--playouts", "128", "--tasks", "8",
+                       "--workers", "8", "--device", "cpu", *flags])
+    out = capsys.readouterr().out
+    moves = int(flags[flags.index("--moves") + 1]) if "--moves" in flags else 1
+    assert len(st["moves_played"]) == moves
+    assert all(0 <= m < 25 for m in st["moves_played"])
+    if "--trees" in flags:
+        assert st["n_trees"] == int(flags[flags.index("--trees") + 1])
+        assert "visit-sum" in out
+    warm = "--cold" not in flags and moves > 1
+    assert ("reused" in out) == warm
 
 
 @pytest.mark.parametrize("call,item", [
@@ -218,9 +275,9 @@ def test_launcher_refuses_out_of_slice_flags(flags, item):
     (lambda: tapi.specs(ModelConfig(use_mla=True)), "A12"),
     (lambda: tapi.prefill({}, ModelConfig(), {"tokens": torch.zeros(
         1, 2, dtype=torch.int32), "patches": torch.zeros(1)}, 4), "A12"),
-    (lambda: tmd.mcts_decode_search_batch(), "A7"),
-    (lambda: tmd.run_chunk_batch(), "A7"),
-    (lambda: tmd.mcts_generate_batch(), "A7"),
+    (lambda: tmd.mcts_decode_search_batch(), "A12b"),
+    (lambda: tmd.run_chunk_batch(), "A12b"),
+    (lambda: tmd.mcts_generate_batch(), "A12b"),
     (lambda: tengine.SlotEngine(), "A10"),
     (lambda: tengine.MCTSSlotEngine(), "A10"),
     (lambda: ttpfifo.TPFIFODriver(), "A10"),

@@ -136,8 +136,8 @@ P = 0x7F00_0000_1230
 LAUNCH_ARGS = {
     "repro_uct_select": (P, P, P, P, P, 0, 0, 1.0, 256, 121, P, P),
     "repro_hex_winner": (P, 256, 11, 9, P, P),
-    "repro_select_descent": (*(P,) * 9, 1.0, 1e-3, 122, 256, 121, 121,
-                             1 << 20, *(P,) * 6),
+    "repro_select_descent": (*(P,) * 9, 1.0, 1e-3, 122, 8, 32, 121, 121,
+                             1 << 18, *(P,) * 6),
     "repro_hex_playout": (P, P, P, 256, 11, 9, P, 0, P),
     "repro_flash_attention": (P, P, P, P, 64, 9, 3, 128, 64, 0.125, 1, 0,
                               *range(12), P),

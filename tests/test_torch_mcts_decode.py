@@ -282,5 +282,5 @@ def test_out_of_slice_calls_raise_not_implemented(call):
               tp, tcfg, prompt, cfg, key, {"patches": torch.zeros(1)},
               device="cpu")}[call]
     with pytest.raises(NotImplementedError,
-                       match="A12" if call == "extras" else "A7"):
+                       match="A12" if call == "extras" else "A12b"):
         fn()
