@@ -20,6 +20,15 @@ the port's four paths:
   and ``hex_playout`` once per sync iteration (and the one-tile kernels
   never), and that the same search run twice (at 65,536 playouts) gives
   bit-identical trees;
+- the paper's grain-size experiment at that width (``paper_sweep``): 11x11
+  Hex, 65,536 playouts a point, fifo and rebalance at 64 to 4,096 tasks
+  and one task a lane, each point's speedup over the sequential searcher,
+  its tree's invariants and its root visits; then the device counters
+  (``search_metrics``: metrics on == off bit for bit, single tree and
+  forest, the counters conserved and equal with the plain versions) and
+  the traced dispatch fit (``trace_fit``: ``gscpm_round`` spans at three
+  grains, an identifiable fit of the card's per-round and per-iteration
+  cost, no kernel build inside a span);
 - the root-parallel forest (``repro_torch.core.root_parallel.
   gscpm_search_batch``): 8 trees of 32 lanes on 11x11 Hex, three self-play
   moves (131,072 playouts a member, then ``reroot_forest`` at the visit-sum
@@ -87,6 +96,15 @@ SHORT_PLAYOUTS = 65_536
 # backup) ~500 eager ops; the same bound holds a forest's iteration (one
 # pass for all members)
 MAX_KERNELS_PER_ITERATION = 800
+
+# the paper's grain-size experiment (Fig 7) at the card's width: 65,536
+# playouts a point, fifo and rebalance at these task counts, and one task a
+# lane (one_per_core); the trace fit's three grains, fifo
+PAPER_SWEEP_TASKS = (64, 256, 1024, 4096)
+TRACE_FIT_TASKS = (256, 1024, 4096)
+# the counters against the plain versions: a budget where the plain
+# descent's level loop (a host read a level) is affordable
+METRICS_CHECK_PLAYOUTS = 8192
 
 # the root-parallel forest path: 8 trees of 32 lanes (256 lanes a launch,
 # the single tree's width), 128 tasks a member (grain 1024 on the first
@@ -802,11 +820,12 @@ def phase_kernels(torch):
 
 
 # ------------------------------------------------------------------ search ----
-def count_launches_one_iteration(torch, tree, board, cfg, key):
+def count_launches_one_iteration(torch, tree, board, cfg, key, metrics=None):
     """CUDA kernel launches of ONE sync iteration on `tree` (which it
     advances), by torch.profiler; None if the profiler saw no device
     activity. A forest (with (E, n) boards) runs one iteration for all its
-    members, with the member streams of ``gscpm_search_batch``."""
+    members, with the member streams of ``gscpm_search_batch``. With a
+    ``metrics`` accumulator the iteration updates it too."""
     from repro_torch import rng
     from repro_torch.core import gscpm, root_parallel
     from torch.profiler import ProfilerActivity, profile
@@ -825,7 +844,8 @@ def count_launches_one_iteration(torch, tree, board, cfg, key):
     iter_keys = rng.fold_in(task_keys, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gscpm.sync_iteration(tree, board, cfg, cfg.cp, iter_keys, active)
+        gscpm.sync_iteration(tree, board, cfg, cfg.cp, iter_keys, active,
+                             metrics)
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
     kernels = 0
@@ -1027,6 +1047,172 @@ def phase_sequential(torch, n_playouts: int):
          playouts=n_playouts, playouts_per_s=st["playouts_per_s"],
          seconds=st["time_s"], tree_nodes=st["tree_nodes"])
     return st["playouts_per_s"]
+
+
+# ------------------------------------------------------- paper experiments ----
+def phase_paper_sweep(torch, seq_rate: float):
+    """The paper's grain-size experiment at the card's width: 11x11 Hex, 256
+    lanes, Cp = 1, 65,536 playouts a point, fifo and rebalance across
+    nTasks and one task a lane; speedup over the sequential searcher's
+    rate. Every point's tree holds its invariants and its root visits equal
+    its playouts."""
+    from repro_torch import rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.core.tree import check_invariants
+
+    board, key = torch.zeros(121, dtype=torch.int8, device="cuda"), rng.key(
+        0, "cuda")
+    plan = [(s, t) for s in ("fifo", "rebalance") for t in PAPER_SWEEP_TASKS]
+    plan.append(("one_per_core", FULL["n_workers"]))
+    counters = search_counters()
+    for c in counters.values():
+        c.launches = 0
+    points, rounds, iterations = [], 0, 0
+    for sched, n_tasks in plan:
+        cfg = GSCPMConfig(**{**FULL, "n_tasks": n_tasks, "scheduler": sched},
+                          n_playouts=SHORT_PLAYOUTS)
+        tree, st = gscpm_search(board, 1, cfg, key)
+        check_invariants(tree)
+        check(float(tree.visits[0]) == st["playouts"],
+              f"paper_sweep {sched} {n_tasks}: root visits "
+              f"{float(tree.visits[0])} != playouts {st['playouts']}")
+        n_iter = sync_iterations(cfg)
+        rounds += n_iter * cfg.vl_rounds
+        iterations += n_iter
+        points.append({
+            "scheduler": sched, "n_tasks": n_tasks, "grain": st["grain"],
+            "rounds": st["rounds"], "sync_iterations": n_iter,
+            "playouts": st["playouts"], "playouts_per_s": st["playouts_per_s"],
+            "masked_lane_fraction": st["masked_lane_fraction"],
+            "speedup": st["playouts_per_s"] / seq_rate,
+            "tree_nodes": st["tree_nodes"], "best_move": st["best_move"]})
+        del tree
+    launches = {name: c.launches for name, c in counters.items()}
+    check(launches["select_descent"] == rounds,
+          f"paper_sweep: select_descent launches "
+          f"{launches['select_descent']} != selection rounds {rounds}")
+    check(launches["hex_playout"] == iterations,
+          f"paper_sweep: hex_playout launches {launches['hex_playout']} != "
+          f"sync iterations {iterations}")
+    check(launches["uct_select"] == 0 and launches["hex_winner"] == 0,
+          f"paper_sweep: the one-tile kernels launched: {launches}")
+    emit("paper_sweep", config={**FULL, "n_playouts": SHORT_PLAYOUTS},
+         sequential_playouts_per_s=seq_rate, points=points,
+         launches=launches)
+    return launches
+
+
+def phase_search_metrics(torch):
+    """The device counters: a search with metrics on is bit-identical to the
+    same search with metrics off (single tree at 65,536 playouts, the 8 x
+    32 forest at its check size); the counters are conserved against the
+    tree, the schedule and the descent's own depths; with the kernels they
+    equal the counters with the plain versions."""
+    import dataclasses
+
+    from repro_torch import parity, rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.core.root_parallel import gscpm_search_batch
+    from repro_torch.obsv import init_search_metrics
+
+    board, key = torch.zeros(121, dtype=torch.int8, device="cuda"), rng.key(
+        0, "cuda")
+    off = GSCPMConfig(**FULL, n_playouts=SHORT_PLAYOUTS)
+    on = dataclasses.replace(off, metrics=True)
+    with recorded_depths() as seen:
+        t_off, s_off = gscpm_search(board, 1, off, key)
+    t_on, s_on = gscpm_search(board, 1, on, key)
+    fields = parity.differing_fields(t_off, t_on)
+    check(fields == [], f"metrics on vs off: the trees differ in {fields}")
+    m = s_on["metrics"]
+    depth_total = int(torch.stack(seen).sum())
+    lanes = sum(x.numel() for x in seen)
+    check(m["lane_playouts"] == s_on["playouts"] == lanes,
+          f"lane_playouts {m['lane_playouts']} != playouts {s_on['playouts']}")
+    check(m["expansions"] == s_on["tree_nodes"] - 1 - m["tree_nodes_reused"],
+          f"expansions {m['expansions']} != tree nodes {s_on['tree_nodes']} "
+          f"- 1 - reused {m['tree_nodes_reused']}")
+    check(m["tree_nodes_peak"] == s_on["tree_nodes"], "tree_nodes_peak")
+    check(m["depth_sum"] == depth_total,
+          f"depth_sum {m['depth_sum']} != the descent's own depths "
+          f"{depth_total}")
+    check(m["sync_iterations"] == sync_iterations(off), "sync_iterations")
+    check(m["expand_proposals"] == m["expansions"] + m["expand_collisions"],
+          "proposals != expansions + collisions")
+    n_on, dev_on = count_launches_one_iteration(
+        torch, t_on, board, on, key, metrics=init_search_metrics())
+    del t_off, t_on
+
+    # the counters with the kernels == with the plain versions
+    small = dataclasses.replace(on, n_playouts=METRICS_CHECK_PLAYOUTS)
+    t_k, s_k = gscpm_search(board, 1, small, key)
+    t_p, s_p = gscpm_search(board, 1, small, key, plain_kernels=True)
+    parted = parity.differing_fields(t_k, t_p)
+    explained = (explain_divergence(torch, dataclasses.replace(
+        small, metrics=False), board, key) if parted else None)
+    if not parted:
+        check(s_k["metrics"] == s_p["metrics"],
+              f"counters with the kernels {s_k['metrics']} != with the plain "
+              f"versions {s_p['metrics']}")
+
+    # the forest at its check size, on and off
+    fcfg = GSCPMConfig(**{**FOREST, "tree_cap": 1 << 16},
+                       n_playouts=FOREST_CHECK["n_playouts"])
+    E = FOREST_TREES
+    f_off, fs_off = gscpm_search_batch(board, 1, fcfg, key, n_trees=E)
+    f_on, fs_on = gscpm_search_batch(
+        board, 1, dataclasses.replace(fcfg, metrics=True), key, n_trees=E)
+    fields = parity.differing_fields(f_off, f_on)
+    check(fields == [], f"forest metrics on vs off: the forests differ in "
+                        f"{fields}")
+    fm = fs_on["metrics"]
+    check(fm["lane_playouts"] == fs_on["playouts"], "forest lane_playouts")
+    check(fm["expansions"] == sum(fs_on["tree_nodes"]) - E,
+          "forest expansions != nodes - one root a member")
+    check(fm["tree_nodes_peak"] == max(fs_on["tree_nodes"]),
+          "forest tree_nodes_peak")
+    emit("search_metrics",
+         config={**FULL, "n_playouts": SHORT_PLAYOUTS},
+         bit_identical=True, metrics=m,
+         mean_lane_depth_from_descent=depth_total / lanes,
+         cuda_kernels_in_one_iteration_metrics_on=n_on,
+         device_ms_in_one_iteration_metrics_on=dev_on,
+         kernel_vs_plain={"playouts": METRICS_CHECK_PLAYOUTS,
+                          "trees_equal": not parted,
+                          "counters_equal": not parted,
+                          "first_divergent_pick": explained},
+         forest={"config": {**FOREST, "tree_cap": 1 << 16, "n_trees": E,
+                            "n_playouts": FOREST_CHECK["n_playouts"]},
+                 "bit_identical": True, "metrics": fm})
+
+
+def phase_trace_fit(torch):
+    """Traced fifo searches at three grains: every round one span with the
+    device synchronised inside it; the least-squares fit of the card's
+    per-round dispatch cost and per-iteration cost must be identifiable,
+    and no kernel build may stall a span (the library is loaded by now)."""
+    from repro_torch import rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.obsv import TraceRecorder, validate_trace
+    from repro_torch.obsv.profile import fit_dispatch_profile
+
+    board, key = torch.zeros(121, dtype=torch.int8, device="cuda"), rng.key(
+        0, "cuda")
+    tracer = TraceRecorder(process_name="chip-smoke-trace-fit")
+    tracer.watch_compiles("kernels")
+    for n_tasks in TRACE_FIT_TASKS:
+        gscpm_search(board, 1, GSCPMConfig(**{**FULL, "n_tasks": n_tasks},
+                                           n_playouts=SHORT_PLAYOUTS),
+                     key, tracer=tracer)
+    n_events = validate_trace(tracer.to_dict())
+    builds = [e for e in tracer.events if e["name"] == "jit_compile"]
+    check(not builds, f"a kernel build stalled a traced span: {builds}")
+    prof = fit_dispatch_profile(tracer, n_workers=FULL["n_workers"])
+    check(prof["identifiable"], f"the dispatch fit is not identifiable: {prof}")
+    check(prof["n_excluded_compile"] == 0, "a span was excluded for a build")
+    emit("trace_fit", config={**FULL, "n_playouts": SHORT_PLAYOUTS,
+                              "n_tasks": list(TRACE_FIT_TASKS)},
+         trace_events=n_events, **prof)
 
 
 # ------------------------------------------------------------ hex forest ----
@@ -1926,17 +2112,22 @@ def main(argv=None) -> int:
         return 0
     launches, rate = phase_search(torch, args.playouts)
     seq_rate = phase_sequential(torch, args.sequential_playouts)
+    sweep_launches = phase_paper_sweep(torch, seq_rate)
+    phase_search_metrics(torch)
+    phase_trace_fit(torch)
     forest_launches, forest_rate = phase_hex_forest(torch)
     gomoku_launches, gomoku_rate = phase_gomoku(torch)
     lm_launches, flash_by_body = phase_lm_search(torch)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
-        # Hex search and the Hex forest; select_descent on Gomoku (its
+        # Hex search, the paper's sweep and the Hex forest; select_descent
+        # on Gomoku (its
         # playout has no kernel); uct_select (the LM descent's tile),
         # flash_attention and rmsnorm on the LM search; hex_winner judges
         # filled boards, which no path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
+                   "paper_sweep": sweep_launches.get(r["name"], 0),
                    "hex_forest": forest_launches.get(r["name"], 0),
                    "gomoku": gomoku_launches.get(r["name"], 0),
                    "lm_search": lm_launches.get(r["name"], 0)}

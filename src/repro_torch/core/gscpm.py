@@ -76,6 +76,11 @@ from repro_torch.core.tree import (
     rows_view,
 )
 from repro_torch.kernels import ops
+from repro_torch.obsv.search_metrics import (
+    accumulate_iteration,
+    init_search_metrics,
+    summarize_metrics,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +110,9 @@ class GSCPMConfig:
     scheduler: str = dataclasses.field(default="fifo", compare=False)
     descent: str = "batched"        # batched (level-synchronous) | scalar (oracle)
     playout: str = "batched"        # batched (fused (W, cells)) | scalar (oracle)
-    # device-side search counters: not ported yet (ROADMAP.md item A9)
+    # device-side search counters: thread a SearchMetrics accumulator through
+    # the search (``repro_torch.obsv.search_metrics``); the search results
+    # are bit-identical either way, and with the flag off nothing extra runs
     metrics: bool = False
     # root-parallel ensemble width: a serving-class key, as in the JAX
     # package; the forest search is core.root_parallel.gscpm_search_batch
@@ -119,18 +126,6 @@ class GSCPMConfig:
     @property
     def grain(self) -> int:
         return max(1, self.n_playouts // max(1, self.n_tasks))
-
-
-def _check_in_slice(cfg: GSCPMConfig, tracer=None, metrics=None) -> None:
-    """Refuse what the reference's signature offers but the port lacks."""
-    if cfg.metrics or metrics is not None:
-        raise NotImplementedError(
-            "cfg.metrics / metrics=: the device-side SearchMetrics counters "
-            "are not ported yet (ROADMAP.md item A9: obsv/search_metrics.py)")
-    if tracer is not None:
-        raise NotImplementedError(
-            "tracer=: host-side tracing is not ported yet (ROADMAP.md item "
-            "A9: obsv/trace.py)")
 
 
 # ------------------------------------------------------------- selection ----
@@ -448,8 +443,14 @@ def sync_iteration(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
     for all E members — one descent per selection round and one (E·W,
     cells) playout — and member e evolves exactly as the single tree
     would with its own board, keys and lanes (the port's ``jax.vmap``).
+
+    ``metrics`` (a ``repro_torch.obsv.SearchMetrics`` accumulator, or None)
+    selects the return shape: with an accumulator the call returns
+    ``(tree, metrics)``; the metric updates are pure extra reductions over
+    values this function computes anyway — no RNG consumed, nothing fed
+    back, no host read — so the tree is bit-identical either way. Without
+    one, nothing extra runs.
     """
-    _check_in_slice(cfg, metrics=metrics)
     game = cfg.game_obj
     W = cfg.n_workers
     lead = tree.parent.shape[:-1]        # () or (E,)
@@ -505,6 +506,8 @@ def sync_iteration(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
     paths, depths, leaves, boards, moves, po_keys = (
         torch.cat(x, dim=lane_axis) for x in zip(*outs))
 
+    # expand_batch bumps n_nodes in place: keep the count before it
+    n_nodes_before = None if metrics is None else tree.n_nodes.clone()
     tree, new_ids = expand_batch(tree, leaves, moves, active)
 
     expanded = new_ids < tree.cap
@@ -532,8 +535,18 @@ def sync_iteration(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
         # every lane of every member (bit-identical values to the oracle)
         winners = game.playout_batch(b2.reshape(-1, n), nxt.reshape(-1),
                                      po_keys.reshape(-1, 2))
-    return backup_paths(tree, paths, winners.view(nxt.shape),
+    tree = backup_paths(tree, paths, winners.view(nxt.shape),
                         active.to(torch.float32))
+    if metrics is None:
+        return tree
+    # (*lead, R, Wr): each selection round's own depths — on the card the
+    # descent kernel's depths output of that round's launch
+    depths_grouped = torch.stack([out[1] for out in outs], dim=lane_axis)
+    metrics = accumulate_iteration(
+        metrics, depths_grouped=depths_grouped, active=active, leaves=leaves,
+        moves=moves, eval_boards=b2, n_nodes_before=n_nodes_before,
+        n_nodes_after=tree.n_nodes)
+    return tree, metrics
 
 
 def run_chunk(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
@@ -546,12 +559,25 @@ def run_chunk(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
     The tree is updated IN PLACE (the port's counterpart of the JAX
     package's buffer donation) and returned. A forest with (E, W, 2)
     ``task_keys`` and (E, W) ``active`` runs all members in each iteration.
+
+    With ``cfg.metrics`` a ``SearchMetrics`` accumulator must ride along
+    (``(E,)`` fields on a forest) and the chunk returns ``(tree,
+    metrics)``; the flag and the accumulator must agree.
     """
-    _check_in_slice(cfg, metrics=metrics)
+    if cfg.metrics != (metrics is not None):
+        raise ValueError(
+            f"cfg.metrics={cfg.metrics} but metrics accumulator "
+            f"{'missing' if metrics is None else 'provided'} — pass "
+            "repro_torch.obsv.init_search_metrics() iff the flag is set")
     for i in range(int(m)):
         iter_keys = rng.fold_in(task_keys, i)
-        tree = sync_iteration(tree, root_board, cfg, cp, iter_keys, active)
-    return tree
+        if cfg.metrics:
+            tree, metrics = sync_iteration(tree, root_board, cfg, cp,
+                                           iter_keys, active, metrics)
+        else:
+            tree = sync_iteration(tree, root_board, cfg, cp, iter_keys,
+                                  active)
+    return (tree, metrics) if cfg.metrics else tree
 
 
 # ------------------------------------------------------------------ search ----
@@ -569,7 +595,8 @@ def run_schedule_round(tree: Tree, board: torch.Tensor, cfg: GSCPMConfig,
     depend only on (``key``, ``rnd.task_ids``), never on wall-clock
     interleaving, so a search served in grain-sized quanta with preemptions
     in between is BIT-IDENTICAL to the same round sequence run back to
-    back. The tree is updated in place and returned.
+    back. The tree is updated in place and returned; with ``cfg.metrics``
+    the accumulator rides along and the round returns ``(tree, metrics)``.
     """
     dev = board.device
     task_ids = torch.as_tensor(rnd.task_ids, dtype=torch.int32, device=dev)
@@ -619,11 +646,19 @@ def gscpm_search(board: torch.Tensor, to_move: int, cfg: GSCPMConfig,
     lie on ``device``), so the input object must not be reused as the old
     state afterwards.
 
+    ``cfg.metrics`` adds a device-side ``SearchMetrics`` summary under
+    ``stats["metrics"]`` (one host read at the end of the search).
+    ``tracer`` (a ``repro_torch.obsv.TraceRecorder``) records one
+    ``gscpm_round`` span per schedule round, annotated with the round's
+    work so ``obsv.profile`` can fit the measured dispatch burden; tracing
+    synchronises the device inside every span, so that the span holds the
+    device work it dispatched — a profiling mode, not the fastest way to
+    run a search. Without a tracer nothing synchronises per round.
+
     ``plain_kernels=True`` runs the whole search with the kernels' plain
     PyTorch versions even on the card (``kernels.ops.plain_versions``): a
     comparison mode, never the default.
     """
-    _check_in_slice(cfg, tracer)
     device = torch.device("cuda") if device is None else torch.device(device)
     board = torch.as_tensor(board).to(device=device, dtype=torch.int8)
     key = key.to(device)
@@ -637,6 +672,10 @@ def gscpm_search(board: torch.Tensor, to_move: int, cfg: GSCPMConfig,
         warm_tree_check(tree, to_move, cfg)
         reused_nodes = int(tree.n_nodes) - 1   # cold trees also own the root
         reused_visits = float(tree.visits[0])
+    metrics = None
+    if cfg.metrics:
+        metrics = init_search_metrics(tree_nodes_reused=reused_nodes,
+                                      device=device)
     schedule = sched.make_schedule(
         cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler)
 
@@ -648,7 +687,19 @@ def gscpm_search(board: torch.Tensor, to_move: int, cfg: GSCPMConfig,
     masked_lane_iters = 0
     with ops.plain_versions() if plain_kernels else contextlib.nullcontext():
         for rnd in schedule:
-            tree = run_schedule_round(tree, board, cfg, key, rnd, cp)
+            span = (tracer.span("gscpm_round", {
+                "rounds": 1, "iterations": int(rnd.m),
+                "lane_iterations": int(rnd.active.sum()) * rnd.m,
+                "tasks": int(rnd.active.sum()), "workers": cfg.n_workers,
+                "game": cfg.game}) if tracer else contextlib.nullcontext())
+            with span:
+                out = run_schedule_round(tree, board, cfg, key, rnd, cp,
+                                         metrics)
+                tree, metrics = out if cfg.metrics else (out, metrics)
+                if tracer:
+                    sync()
+            if tracer:
+                tracer.poll_compiles()
             playouts += int(rnd.active.sum()) * rnd.m
             masked_lane_iters += int((~rnd.active).sum()) * rnd.m
     sync()
@@ -669,4 +720,6 @@ def gscpm_search(board: torch.Tensor, to_move: int, cfg: GSCPMConfig,
     if reused_nodes or reused_visits:
         stats["reused_nodes"] = reused_nodes
         stats["reused_visits"] = reused_visits
+    if cfg.metrics:
+        stats["metrics"] = summarize_metrics(metrics)
     return tree, stats

@@ -52,7 +52,6 @@ from repro_torch import rng
 from repro_torch.core import scheduler as sched
 from repro_torch.core.gscpm import (
     GSCPMConfig,
-    _check_in_slice,
     fold_task_keys,
     run_chunk,
     warm_tree_check,
@@ -69,6 +68,10 @@ from repro_torch.core.tree import (
     root_value,
 )
 from repro_torch.kernels import ops
+from repro_torch.obsv.search_metrics import (
+    init_search_metrics_forest,
+    summarize_metrics,
+)
 
 _MULTI_CARD = ("the multi-card ensemble arm (an 'ens' mesh, the forest "
                "sharded over it) is not ported yet (ROADMAP.md item A7, its "
@@ -83,10 +86,11 @@ def _forest_chunk(forest: Tree, boards: torch.Tensor, cfg: GSCPMConfig,
     for all E members (boards (E, n), task_keys (E, W, 2), active (E, W)).
     All members share the round's grain ``m`` and ``cp``; per-member RNG
     streams keep their searches decorrelated. Updates the forest in place
-    and returns it. ``cfg.metrics`` is not ported yet (ROADMAP.md item
-    A9)."""
-    _check_in_slice(cfg, metrics=metrics)
-    return run_chunk(forest, boards, cfg, task_keys, active, m, cp)
+    and returns it. ``cfg.metrics`` threads a per-member ``SearchMetrics``
+    accumulator ((E,) fields, ``init_search_metrics_forest``) through the
+    same pass and returns ``(forest, metrics)``: the duplicate counts are
+    per member (the member is the sort's leading key)."""
+    return run_chunk(forest, boards, cfg, task_keys, active, m, cp, metrics)
 
 
 run_chunk_forest = _forest_chunk
@@ -161,7 +165,9 @@ def run_schedule_round_forest(forest: Tree, boards: torch.Tensor,
 
     ``n_real`` masks pad members (rows ``>= n_real`` run with all-False
     ``active`` — bitwise inert). ``mesh`` (the multi-card arm) is not
-    ported yet. The forest is updated in place and returned.
+    ported yet. The forest is updated in place and returned; with
+    ``cfg.metrics`` the accumulator rides along and the round returns
+    ``(forest, metrics)``.
     """
     if mesh is not None:
         raise NotImplementedError(f"run_schedule_round_forest(mesh=): "
@@ -345,12 +351,13 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
 
     ``device=None`` means ``torch.device("cuda")``. ``shard``: ``"auto"``
     and ``"off"`` run the one-device arm; ``"require"`` raises (the
-    multi-card arm is not ported yet). ``tracer`` and ``cfg.metrics`` are
-    not ported yet (ROADMAP.md item A9). ``plain_kernels=True`` runs the
-    whole search with the kernels' plain versions even on the card (a
-    comparison mode).
+    multi-card arm is not ported yet). ``cfg.metrics`` adds a
+    whole-ensemble ``stats["metrics"]`` summary (members merged: counters
+    summed, gauges maxed); ``tracer`` records per-round ``gscpm_round``
+    spans, synchronising the device inside each (a profiling mode — see
+    ``gscpm.gscpm_search``). ``plain_kernels=True`` runs the whole search
+    with the kernels' plain versions even on the card (a comparison mode).
     """
-    _check_in_slice(cfg, tracer)
     device = torch.device("cuda") if device is None else torch.device(device)
     boards = torch.as_tensor(boards).to(device=device, dtype=torch.int8)
     if boards.dim() == 1:
@@ -388,6 +395,13 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
     schedule = sched.make_schedule(
         cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler)
     state = init_sync_state(E, n_moves, device) if merge_every > 0 else None
+    metrics = None
+    if cfg.metrics:
+        metrics = init_search_metrics_forest(E, device)
+        if reused_nodes:
+            # per-member retention gauge (summed in the ensemble summary)
+            metrics = metrics._replace(
+                tree_nodes_reused=(forest.n_nodes - 1).to(torch.int32))
 
     cp = float(cfg.cp)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -397,8 +411,20 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
     n_syncs = 0
     with ops.plain_versions() if plain_kernels else contextlib.nullcontext():
         for r, rnd in enumerate(schedule):
-            forest = run_schedule_round_forest(forest, boards, cfg,
-                                               member_keys, rnd, cp, n_real=E)
+            span_args = {"rounds": 1, "iterations": int(rnd.m),
+                         "lane_iterations": E * int(rnd.active.sum()) * rnd.m,
+                         "tasks": E * int(rnd.active.sum()),
+                         "workers": E * cfg.n_workers, "game": cfg.game}
+            with (tracer.span("gscpm_round", span_args) if tracer
+                  else contextlib.nullcontext()):
+                out = run_schedule_round_forest(forest, boards, cfg,
+                                                member_keys, rnd, cp, metrics,
+                                                n_real=E)
+                forest, metrics = out if cfg.metrics else (out, metrics)
+                if tracer:
+                    sync()
+            if tracer:
+                tracer.poll_compiles()
             playouts_per_tree += int(rnd.active.sum()) * rnd.m
             if merge_every > 0 and ((r + 1) % merge_every == 0
                                     or r == len(schedule) - 1):
@@ -430,6 +456,8 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
     }
     if reused_nodes:
         stats["reused_nodes"] = reused_nodes
+    if cfg.metrics:
+        stats["metrics"] = summarize_metrics(metrics)
     return forest, stats
 
 

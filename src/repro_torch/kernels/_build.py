@@ -78,6 +78,10 @@ ARGS = {
 
 _lib: ctypes.PyDLL | None = None
 last_build_seconds: float | None = None  # None: nothing compiled in this process
+# builds of the library in this process: ``load()`` adds one when it compiles
+# or first loads it (a stall of seconds in whatever called it). The port's
+# counterpart of a jit cache's size, read by ``obsv.trace.CompileWatch``.
+builds = 0
 
 # the current device and its current raw stream: the CUDA build of torch has
 # the C entry points Inductor uses; a build without them takes the public API
@@ -188,7 +192,7 @@ def _compile(srcs: list[Path], target: Path) -> None:
 
 def load() -> ctypes.PyDLL:
     """The kernels' library, built on first use."""
-    global _lib, last_build_seconds
+    global _lib, last_build_seconds, builds
     if _lib is not None:
         return _lib
     srcs = sources()
@@ -216,6 +220,7 @@ def load() -> ctypes.PyDLL:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     _lib = lib
+    builds += 1
     return lib
 
 

@@ -9,9 +9,13 @@ re-rooted tree or forest (``--cold`` for a fresh one every move);
 ``--game gomoku`` searches free-style Gomoku. ``--device cpu`` runs the
 same search with the kernels' plain PyTorch versions.
 
-The flags are those of ``repro.launch.search``. ``--metrics`` and
-``--trace`` (observability) are accepted and refused by name: not ported
-yet (ROADMAP.md item A9).
+The flags are those of ``repro.launch.search``. ``--metrics`` threads the
+device-side ``SearchMetrics`` counters through every search and prints
+their summary (the moves are the same either way); ``--trace OUT.json``
+records one ``gscpm_round`` span per schedule round, with the device
+synchronised inside each, and a ``jit_compile`` instant for a build of
+the CUDA kernels' library, and writes them as Chrome/Perfetto trace-event
+JSON.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from repro_torch import rng
 from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
 from repro_torch.core.root_parallel import gscpm_search_batch
 from repro_torch.core.tree import reroot_forest, reroot_tree
+from repro_torch.obsv.trace import TraceRecorder, validate_trace
 
 
 def main(argv=None):
@@ -54,28 +59,27 @@ def main(argv=None):
     reuse.add_argument("--cold", dest="reuse", action="store_false",
                        help="ablation: fresh tree every move")
     p.add_argument("--metrics", action="store_true",
-                   help="device-side search counters")
+                   help="thread the device-side SearchMetrics accumulator "
+                        "through the search and print its summary "
+                        "(bit-identical results)")
     p.add_argument("--trace", default=None, metavar="OUT.json",
-                   help="record per-round spans as trace-event JSON")
+                   help="record per-round spans as Chrome/Perfetto trace-"
+                        "event JSON (synchronises per round while tracing)")
     p.add_argument("--device", default=None,
                    help="torch device; default: cuda (raises without a GPU)")
     args = p.parse_args(argv)
-
-    if args.metrics:
-        raise NotImplementedError(
-            "--metrics: the device-side SearchMetrics counters are not "
-            "ported yet (ROADMAP.md item A9: obsv/search_metrics.py)")
-    if args.trace:
-        raise NotImplementedError(
-            "--trace: host-side tracing is not ported yet (ROADMAP.md item "
-            "A9: obsv/trace.py)")
 
     device = "cuda" if args.device is None else args.device
     cfg = GSCPMConfig(game=args.game, board_size=args.size,
                       n_playouts=args.playouts, n_tasks=args.tasks,
                       n_workers=args.workers, cp=args.cp,
                       scheduler=args.scheduler,
-                      tree_cap=max(1 << 14, 4 * args.playouts))
+                      tree_cap=max(1 << 14, 4 * args.playouts),
+                      metrics=args.metrics)
+    tracer = None
+    if args.trace:
+        tracer = TraceRecorder(process_name="repro-search")
+        tracer.watch_compiles("kernels")    # builds of the CUDA library
     game = cfg.game_obj
     board = game.init_board(device)
     key = rng.key(args.seed, device)
@@ -88,7 +92,7 @@ def main(argv=None):
         if args.trees > 1:
             forest, st = gscpm_search_batch(
                 board, to_move, cfg, key_mv, n_trees=args.trees,
-                forest=carry, device=device)
+                forest=carry, tracer=tracer, device=device)
             mv = st["best_move_sum"]
             if "reused_nodes" in st:
                 reused = f", reused {st['reused_nodes']} nodes"
@@ -101,7 +105,7 @@ def main(argv=None):
                   f"{['%.3f' % v for v in st['member_root_values']]}")
         else:
             tree, st = gscpm_search(board, to_move, cfg, key_mv,
-                                    tree=carry, device=device)
+                                    tree=carry, tracer=tracer, device=device)
             mv = st["best_move"]
             if "reused_visits" in st:
                 reused = (f", reused {st['reused_nodes']} nodes / "
@@ -112,6 +116,15 @@ def main(argv=None):
                   f"{st['tree_nodes']} nodes{reused}) on {device}")
             print(f"  best move {st['best_move']}, "
                   f"root value {st['root_value']:.3f}")
+        if args.metrics:
+            dm = st["metrics"]
+            print(f"  device metrics: depth mean/max {dm['depth_mean']:.2f}/"
+                  f"{dm['depth_max']}, {dm['expansions']} expansions "
+                  f"({dm['expand_collision_rate']:.2f} collision rate), "
+                  f"playout len mean/max {dm['playout_len_mean']:.1f}/"
+                  f"{dm['playout_len_max']}, held levels {dm['held_levels']}, "
+                  f"peak {dm['tree_nodes_peak']} nodes, "
+                  f"reused {dm['tree_nodes_reused']}")
         played.append(mv)
         if mvno == args.moves - 1 or mv < 0:
             break
@@ -122,6 +135,10 @@ def main(argv=None):
                            to_move)
         to_move = 3 - to_move
     st["moves_played"] = played
+    if tracer is not None:
+        path = tracer.save(args.trace)
+        st["trace_events"] = validate_trace(path)
+        print(f"  trace: {st['trace_events']} events -> {path}")
     return st
 
 

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, it
-runs on the GPU unless told otherwise, and it refuses by name what it has
-not ported yet."""
+"""The port stands alone: it imports neither jax nor the JAX package (and
+its benchmarks not the JAX package's benchmarks), it runs on the GPU unless
+told otherwise, and it refuses by name what it has not ported yet."""
 
 import ast
 import pathlib
@@ -28,9 +28,13 @@ from repro_torch.serve import tpfifo as ttpfifo
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+BENCH_FILES = sorted((ROOT / "benchmarks_torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + BENCH_FILES
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+# the port's benchmarks are the JAX package's benchmarks' twins, never
+# their callers
+FORBIDDEN_IN_BENCH = FORBIDDEN | {"benchmarks"}
 
 
 def imported_roots(path: pathlib.Path) -> set[str]:
@@ -49,7 +53,11 @@ def test_port_files_are_found():
             "chip_smoke.py", "convert.py", "search.py", "mcts_decode.py",
             "attention.py", "transformer.py", "api.py", "layers.py",
             "common.py", "flash_attention.py", "rmsnorm.py", "engine.py",
-            "tpfifo.py", "serve.py", "gomoku.py", "root_parallel.py"} <= names
+            "tpfifo.py", "serve.py", "gomoku.py", "root_parallel.py",
+            "cilkview.py", "hex_paper.py", "search_metrics.py", "trace.py",
+            "metrics.py", "profile.py", "fig7_speedup.py", "fig9_mapping.py",
+            "table2_sequential.py", "fig5_cilkview.py", "ablate_vloss.py",
+            "run.py"} <= names
 
 
 # PyTorch's fused attention and norm are the LM kernels' library yardsticks:
@@ -60,7 +68,8 @@ LIBRARY_CALLS = ("scaled_dot_product_attention", "rms_norm")
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_import_of_jax_or_the_jax_package(path):
-    assert not (imported_roots(path) & FORBIDDEN)
+    forbidden = FORBIDDEN_IN_BENCH if path in BENCH_FILES else FORBIDDEN
+    assert not (imported_roots(path) & forbidden)
     text = path.read_text()
     for banned in ("torch.compile", "import triton"):
         assert banned not in text, f"{banned} in {path.name}"
@@ -96,11 +105,13 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.kernels.ops, repro_torch.launch.search, "
             "repro_torch.convert, repro_torch.parity, "
             "repro_torch.serve.mcts_decode, repro_torch.models.api, "
-            "repro_torch.configs; "
+            "repro_torch.configs, repro_torch.configs.hex_paper, "
+            "repro_torch.obsv, repro_torch.obsv.profile, "
+            "benchmarks_torch.run, benchmarks_torch.fig9_mapping; "
             "from repro_torch.kernels import _build; "
             "assert _build._lib is None; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 
 
@@ -195,34 +206,50 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
 
 @pytest.mark.parametrize("over,item", [(dict(metrics=True), "A9")])
 def test_out_of_slice_config_raises_not_implemented(over, item):
+    """Item A9 (the device counters) is ported: a config with
+    ``metrics=True`` runs, and its summary counts the search's playouts."""
     cfg = tg.GSCPMConfig(**{**dict(board_size=5, n_playouts=16, n_tasks=2,
                                    n_workers=4, tree_cap=64), **over})
-    with pytest.raises(NotImplementedError, match=item):
-        tg.gscpm_search(torch.zeros(25, dtype=torch.int8), 1, cfg,
-                        rng.key(0, "cpu"), device="cpu")
+    tree, st = tg.gscpm_search(torch.zeros(25, dtype=torch.int8), 1, cfg,
+                               rng.key(0, "cpu"), device="cpu")
+    assert st["metrics"]["lane_playouts"] == st["playouts"] == 16
+    assert st["metrics"]["expansions"] == int(tree.n_nodes) - 1
 
 
 def test_out_of_slice_arguments_raise_not_implemented():
+    """Item A9 is ported: ``tracer=`` records one span per round on the
+    single tree and the forest, and ``metrics=`` accumulators ride through
+    ``sync_iteration``, ``run_chunk`` and ``run_chunk_forest``."""
+    from repro_torch.obsv import (TraceRecorder, init_search_metrics,
+                                  init_search_metrics_forest)
     cfg = tg.GSCPMConfig(board_size=5, n_playouts=16, n_tasks=2, n_workers=4,
                          tree_cap=64)
+    on = tg.GSCPMConfig(board_size=5, n_playouts=16, n_tasks=2, n_workers=4,
+                        tree_cap=64, metrics=True)
     board = torch.zeros(25, dtype=torch.int8)
     key = rng.key(0, "cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tg.gscpm_search(board, 1, cfg, key, tracer=object(), device="cpu")
+    tracer = TraceRecorder()
+    _, st = tg.gscpm_search(board, 1, cfg, key, tracer=tracer, device="cpu")
+    assert sum(e["name"] == "gscpm_round" for e in tracer.events) == st[
+        "rounds"]
     tree = tt.init_tree(64, 25, 1, device="cpu")
     keys = rng.split(key, 4)
     active = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tg.sync_iteration(tree, board, cfg, 1.0, keys, active, metrics=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        tg.run_chunk(tree, board, cfg, keys, active, 1, 1.0, object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        trp.gscpm_search_batch(board, 1, cfg, key, n_trees=2, tracer=object(),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        trp.run_chunk_forest(tt.init_forest(2, 64, 25, 1, device="cpu"),
-                             board.expand(2, -1), cfg, keys.expand(2, -1, -1),
-                             active.expand(2, -1), 1, 1.0, object())
+    tree, m = tg.sync_iteration(tree, board, on, 1.0, keys, active,
+                                metrics=init_search_metrics(device="cpu"))
+    assert int(m.sync_iterations) == 1 and int(m.lane_playouts) == 4
+    tree, m = tg.run_chunk(tree, board, on, keys, active, 2, 1.0, m)
+    assert int(m.sync_iterations) == 3 and float(tree.visits[0]) == 12
+    tracer = TraceRecorder()
+    _, st = trp.gscpm_search_batch(board, 1, cfg, key, n_trees=2,
+                                   tracer=tracer, device="cpu")
+    assert sum(e["name"] == "gscpm_round" for e in tracer.events) == st[
+        "rounds"]
+    forest, fm = trp.run_chunk_forest(
+        tt.init_forest(2, 64, 25, 1, device="cpu"), board.expand(2, -1), on,
+        keys.expand(2, -1, -1), active.expand(2, -1), 1, 1.0,
+        init_search_metrics_forest(2, "cpu"))
+    assert fm.lane_playouts.tolist() == [4, 4]
 
 
 @pytest.mark.parametrize("over", [dict(n_trees=2), dict(game="gomoku")],
@@ -243,10 +270,22 @@ def test_config_fields_of_this_slice_run(over):
 
 @pytest.mark.parametrize("flags,item", [
     (["--metrics"], "A9"), (["--trace", "out.json"], "A9")])
-def test_launcher_refuses_out_of_slice_flags(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tsearch.main(["--size", "5", "--playouts", "16", "--device", "cpu",
-                      *flags])
+def test_launcher_refuses_out_of_slice_flags(flags, item, tmp_path,
+                                             monkeypatch, capsys):
+    """Item A9 is ported: ``--metrics`` prints the device counters,
+    ``--trace`` writes a trace that ``validate_trace`` accepts."""
+    from repro_torch.obsv import validate_trace
+    monkeypatch.chdir(tmp_path)
+    st = tsearch.main(["--size", "5", "--playouts", "16", "--tasks", "4",
+                       "--workers", "4", "--device", "cpu", *flags])
+    out = capsys.readouterr().out
+    if "--metrics" in flags:
+        assert st["metrics"]["lane_playouts"] == 16
+        assert "device metrics" in out
+    else:
+        assert validate_trace(str(tmp_path / "out.json")) == st[
+            "trace_events"] > st["rounds"]
+        assert "trace:" in out
 
 
 @pytest.mark.parametrize("flags", [
