@@ -12,7 +12,7 @@ Hex path's ``select_descent`` (a whole selection round in one launch) and
 ``hex_playout`` (a whole playout in one launch), the one-tile
 ``uct_select`` and ``hex_winner``, both bodies of ``flash_attention``, the
 bf16 tensor-core one and the CUDA-core one, and ``rmsnorm`` — and drives
-the port's four paths:
+the port's five paths:
 
 - one full-width GSCPM Hex search (11x11, 256 lanes, the paper's 1,048,576
   playouts) through ``repro_torch.core.gscpm.gscpm_search``, checking among
@@ -42,6 +42,16 @@ the port's four paths:
   ``reroot_tree`` and a warm second move, its descent through
   ``select_descent`` (225 children a node), kernels against plain versions,
   and a won position that must stop the descent;
+- serving board-game search (``repro_torch.serve.games``, ``serve_games``):
+  the TPFIFO engine with 2 slots a game class, quanta of 2 rounds and
+  preemption after 2 quanta, 256 lanes, serving 16 requests alternating
+  Hex 11x11 and Gomoku 15x15 (16,384 to 65,536 playouts each) and a Hex
+  forest tenant of 4 trees; a preempted request of each class equals its
+  direct ``gscpm_search``, the forest tenant ``gscpm_search_batch``, the
+  first 6 served again blocking equal the pipelined answers; two sessions
+  play 4 Hex moves with the re-root contract held and a warm move equal to
+  its direct reference; a seeded fault plan's answers equal the fault-free
+  ones; one engine tick profiled;
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
   weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 4
   tokens after a 128-token prompt, 1,024 playouts on 64 lanes per token,
@@ -123,6 +133,35 @@ GOMOKU = dict(game="gomoku", board_size=15, n_workers=256, n_tasks=256,
               tree_cap=1 << 17, scheduler="fifo", cp=1.0, vl_rounds=1)
 GOMOKU_PLAYOUTS = (65_536, 65_536)
 GOMOKU_CHECK_PLAYOUTS = 8192
+
+# serving board-game search (repro_torch.serve.games): the TPFIFO engine
+# with 2 slots a game class, quanta of 2 schedule rounds, preemption after
+# 2 quanta, 256 lanes; 16 requests alternating Hex 11x11 and Gomoku 15x15,
+# each of 16,384, 32,768 or 65,536 playouts (drawn from seed 0) in tasks of
+# grain 16 (4 to 16 rounds), then one Hex forest tenant of 4 trees
+SERVE_ENGINE = dict(n_slots=2, grain=2, preempt_quanta=2, n_workers=256,
+                    tree_cap=1 << 17)
+SERVE_GAMES = (("hex", 11), ("gomoku", 15))
+SERVE_REQUESTS = 16
+SERVE_PLAYOUTS = (16_384, 32_768, 65_536)
+SERVE_GRAIN = 16
+SERVE_FOREST = dict(n_trees=4, n_playouts=8192)
+SERVE_BLOCKING = 6          # the first 6 served again, pipelining off
+# two sessions following one game of Hex 11x11 at 32,768 playouts a move;
+# which session answers each move (session 2 answers moves 1 and 2, so its
+# warm search at move 2 starts from its own answer's subtree)
+SESSION_MOVES = 4
+SESSION_ANSWERS = (1, 2, 2, 1)
+SESSION_PLAYOUTS = 32_768
+# chaos: the seeded fault plan over 8 requests of 4,096 and 8,192 playouts
+# at a small tree capacity (a snapshot a quantum stays cheap)
+CHAOS_PLAN = dict(seed=0, n_ticks=4096, n_slots=4, rate=0.05)
+CHAOS_REQUESTS = 8
+CHAOS_PLAYOUTS = (4096, 8192)
+CHAOS_TREE_CAP = 1 << 14
+# the profiled tick: a Hex and a Gomoku request of 4 rounds, past their
+# first quantum
+TICK_PLAYOUTS = 16_384
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
 # 4 generated tokens, each from a GSCPM search of 1,024 playouts on 64 lanes
@@ -500,7 +539,9 @@ def forest_descent_cases(torch, t11, b11):
     shape); 3 members on 7x7 from three different positions (members at
     different depths) and the same with one member's root held; the 11x11
     single tree as a forest of one; three equal-stat 5x5 members of 1, 2
-    and 3 levels with one member held at the root."""
+    and 3 levels with one member held at the root; the serving path's forest
+    tenant (4 members of 256 lanes at its tree capacity, its config from
+    the engine)."""
     from repro_torch import parity, rng
     from repro_torch.core.gscpm import GSCPMConfig
     from repro_torch.core.hex import HexGame
@@ -538,6 +579,15 @@ def forest_descent_cases(torch, t11, b11):
     eq.n_children[2, 0] -= 1
     cases.append(("forest equal stats 5x5, E=3, depths 1-3, member 2 held",
                   eq, eq_boards, HexGame(5), 16))
+    tenant = serve_traffic()[-1]
+    cfg = serve_engine().request_cfg(tenant)
+    board = cfg.game_obj.init_board("cuda")
+    fs, _ = gscpm_search_batch(board, 1, cfg, rng.key(tenant.seed, "cuda"),
+                               n_trees=tenant.n_trees)
+    cases.append((f"serving forest tenant: 11x11, E={tenant.n_trees}, "
+                  f"cap {cfg.tree_cap}", fs,
+                  board.expand(tenant.n_trees, -1).contiguous(),
+                  cfg.game_obj, cfg.n_workers))
     return cases
 
 
@@ -847,6 +897,12 @@ def count_launches_one_iteration(torch, tree, board, cfg, key, metrics=None):
         gscpm.sync_iteration(tree, board, cfg, cfg.cp, iter_keys, active,
                              metrics)
         torch.cuda.synchronize()
+    return cuda_activity(prof)
+
+
+def cuda_activity(prof):
+    """(CUDA kernels, their device ms) in a ``torch.profiler`` window; with
+    no device trace, (host-side launch calls or None, None)."""
     from torch.autograd import DeviceType
     kernels = 0
     device_us = 0.0
@@ -1523,6 +1579,422 @@ def phase_gomoku(torch):
     return launches, total_playouts / total_s
 
 
+# ------------------------------------------------------------- serve games ----
+SUMMARY_KEYS = ("root_visits", "root_wins", "best_move", "root_value",
+                "tree_nodes")
+
+
+def differing_answer(a: dict, b: dict, keys=SUMMARY_KEYS) -> list:
+    """Keys on which two served answers (or root summaries) differ."""
+    import numpy as np
+    return [k for k in keys
+            if not (np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+                    else a[k] == b[k])]
+
+
+def serve_engine(**kw):
+    from repro_torch.serve.games import TPFIFOGameEngine
+    return TPFIFOGameEngine(**{**SERVE_ENGINE, **kw}, device="cuda")
+
+
+def serve_traffic():
+    """The mixed requests (playouts drawn from seed 0, tasks of grain 16)
+    and the Hex forest tenant, as fresh request objects."""
+    import numpy as np
+    from repro_torch.serve.games import GameRequest
+    draw = np.random.default_rng(0)
+    reqs = []
+    for rid in range(SERVE_REQUESTS):
+        game, size = SERVE_GAMES[rid % len(SERVE_GAMES)]
+        n = int(draw.choice(SERVE_PLAYOUTS))
+        reqs.append(GameRequest(rid=rid, game=game, board_size=size,
+                                n_playouts=n, n_tasks=n // SERVE_GRAIN,
+                                seed=rid))
+    n = SERVE_FOREST["n_playouts"]
+    game, size = SERVE_GAMES[0]
+    reqs.append(GameRequest(rid=SERVE_REQUESTS, game=game, board_size=size,
+                            n_playouts=n, n_tasks=n // SERVE_GRAIN,
+                            seed=SERVE_REQUESTS,
+                            n_trees=SERVE_FOREST["n_trees"]))
+    return reqs
+
+
+def served_clean(eng, registry, what: str) -> None:
+    """A fault-free run: every request answered, no retry, no quarantined
+    slot, no result-guard rejection, nothing shed or left over."""
+    st = eng.stats()
+    check(st.n_retries == 0, f"{what}: {st.n_retries} retries")
+    check(st.n_quarantined == 0 and not eng.quarantined,
+          f"{what}: quarantined slots {eng.quarantined}")
+    guard = registry.snapshot()["metrics"].get(
+        "serve_guard_failures_total", {}).get("value", 0)
+    check(guard == 0, f"{what}: {guard} result-guard rejections")
+    check(st.n_unfinished == 0 and st.n_shed == 0,
+          f"{what}: {st.n_unfinished} unfinished, {st.n_shed} shed")
+    check(all(r.result["status"] == "answered" for r in eng.finished),
+          f"{what}: a request ended other than answered")
+
+
+def serve_run(torch, reqs, **kw):
+    """Serve ``reqs`` on a fresh engine: (engine, registry, wall seconds)."""
+    from repro_torch.obsv import MetricsRegistry
+    registry = MetricsRegistry()
+    eng = serve_engine(registry=registry, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(eng.submit(r), f"serve: request {r.rid} not queued")
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, registry, time.perf_counter() - t0
+
+
+def profile_one_tick(torch):
+    """CUDA kernels, device ms and wall ms of one steady engine tick: a Hex
+    and a Gomoku request (4 rounds each) past their first quantum, the
+    tick that runs the second."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.games import GameRequest
+    eng = serve_engine()
+    for rid, (game, size) in enumerate(SERVE_GAMES):
+        eng.submit(GameRequest(rid=rid, game=game, board_size=size,
+                               n_playouts=TICK_PLAYOUTS,
+                               n_tasks=TICK_PLAYOUTS // SERVE_GRAIN,
+                               seed=rid))
+    eng.run(max_ticks=1, on_exhaust="ignore")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(max_ticks=1, on_exhaust="ignore")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    eng.run()
+    kernels, device_ms = cuda_activity(prof)
+    return {"cuda_kernels": kernels, "device_ms": device_ms,
+            "wall_ms": wall_ms, "sync_iterations": 2 * 2 * SERVE_GRAIN,
+            "device_idle_share": (1 - device_ms / wall_ms) if device_ms
+            else None}
+
+
+def serve_sessions(torch):
+    """Two sessions follow one game of Hex 11x11 move by move, each playing
+    every move; session 1 answers moves 0 and 3, session 2 moves 1 and 2,
+    so its move-2 search starts from the subtree of its own move-1 answer.
+    Every re-root keeps its retention contract, and move 2 equals the
+    direct warm reference, made from a clone of the session's tree with
+    its fields read before the search (the served search writes into the
+    session's tree in place)."""
+    import dataclasses
+    from repro_torch import rng
+    from repro_torch.core.gscpm import gscpm_search
+    from repro_torch.core.tree import (Tree, check_reroot_retention,
+                                       root_summary)
+    from repro_torch.obsv import MetricsRegistry
+    from repro_torch.serve import games
+    registry = MetricsRegistry()
+    eng = serve_engine(registry=registry)
+    game, size = SERVE_GAMES[0]
+    sessions = {p: games.GameSession(eng, game, size, base_seed=100 * p,
+                                     name=f"{game}{size}-s{p}")
+                for p in (1, 2)}
+    moves, warm_check = [], None
+    for mvno in range(SESSION_MOVES):
+        side = sessions[1].to_move
+        answers = SESSION_ANSWERS[mvno]
+        sess = sessions[answers]
+        if mvno == 2:
+            check(sess.tree is not None, "sessions: no warm tree at move 2")
+            clone = Tree(*(x.clone() for x in sess.tree))
+            reused_visits = float(clone.visits[0])      # before the search
+            reused_nodes = int(clone.n_nodes) - 1
+            check(reused_nodes > 0 and reused_visits > 0,
+                  f"sessions: move 2's warm tree is empty ({reused_nodes} "
+                  f"nodes, {reused_visits} visits below the root)")
+            board, to_move = sess.board.clone(), sess.to_move
+        req = sess.make_request(n_playouts=SESSION_PLAYOUTS,
+                                n_tasks=SESSION_PLAYOUTS // SERVE_GRAIN)
+        t0 = time.perf_counter()
+        eng.submit(req)
+        eng.run()
+        seconds = time.perf_counter() - t0
+        res = req.result
+        if mvno == 2:
+            cfg = eng.request_cfg(req)
+            po, tasks = games.warm_budget(cfg.n_playouts, cfg.n_tasks,
+                                          cfg.n_workers, reused_visits)
+            tree, st = gscpm_search(
+                board, to_move,
+                dataclasses.replace(cfg, n_playouts=po, n_tasks=tasks),
+                rng.key(req.seed, "cuda"), tree=clone)
+            bad = differing_answer(res, root_summary(tree,
+                                                     cfg.game_obj.n_actions))
+            check(not bad, f"sessions: move 2 differs from the direct warm "
+                           f"reference in {bad}")
+            check(res["reused_visits"] == int(reused_visits)
+                  and res["reused_nodes"] == reused_nodes
+                  and res["playouts"] == st["playouts"],
+                  "sessions: move 2's reuse accounting differs from the "
+                  "reference's")
+            warm_check = {"move": 2, "equal_to_direct_reference": True,
+                          "reused_visits": res["reused_visits"],
+                          "reused_nodes": reused_nodes,
+                          "fresh_playouts": res["playouts"]}
+        mv = res["best_move"]
+        check(0 <= mv < size * size, f"sessions: move {mvno} off the board")
+        retained = {}
+        for p, s in sessions.items():
+            src = s.tree
+            s.play(mv)
+            if src is not None:
+                retained[p] = check_reroot_retention(src, s.tree, mv)
+        moves.append({"move": mvno, "player": side, "session": answers,
+                      "best_move": mv,
+                      "playouts": res["playouts"],
+                      "reused_visits": res.get("reused_visits", 0),
+                      "seconds": seconds, "retained_nodes": retained})
+    served_clean(eng, registry, "sessions")
+    return {"moves": moves, "warm_reference": warm_check}
+
+
+def serve_chaos(torch):
+    """The seeded fault plan over 8 mixed requests: every request answered,
+    equal to the same traffic served without faults; at least one retry,
+    and no more than the dispatch and poison faults that fired. Then a plan
+    that poisons every slot's root statistics after the first tick's
+    quantum (in place, on the card): the result guard rejects each poisoned
+    answer, the search rolls back to its host snapshot and retries, and the
+    answers again equal the fault-free run."""
+    from repro_torch.serve.games import GameRequest
+    from repro_torch.serve.resilience import (FaultEvent, FaultInjector,
+                                              FaultPlan)
+
+    def traffic():
+        out = []
+        for i in range(CHAOS_REQUESTS):
+            game, size = SERVE_GAMES[i % len(SERVE_GAMES)]
+            n = CHAOS_PLAYOUTS[i % 4 >= 2]
+            out.append(GameRequest(rid=i, game=game, board_size=size,
+                                   n_playouts=n, n_tasks=n // SERVE_GRAIN,
+                                   seed=1000 + i))
+        return out
+
+    injector = FaultInjector(FaultPlan.generate(**CHAOS_PLAN))
+    chaos_reqs, calm_reqs = traffic(), traffic()
+    eng, _, wall = serve_run(torch, chaos_reqs, tree_cap=CHAOS_TREE_CAP,
+                             injector=injector)
+    calm, calm_registry, _ = serve_run(torch, calm_reqs,
+                                       tree_cap=CHAOS_TREE_CAP)
+    served_clean(calm, calm_registry, "chaos: the fault-free run")
+    for a, b in zip(chaos_reqs, calm_reqs):
+        check(a.result["status"] == "answered",
+              f"chaos: request {a.rid} ended {a.result['status']}")
+        bad = differing_answer(a.result, b.result,
+                               SUMMARY_KEYS + ("playouts", "rounds"))
+        check(not bad, f"chaos: request {a.rid} differs from the fault-free "
+                       f"run in {bad}")
+    st = eng.stats()
+    fired = dict(injector.fired)
+    hits = fired.get("dispatch_error", 0) + fired.get("poison_nan", 0)
+    check(1 <= st.n_retries <= hits,
+          f"chaos: {st.n_retries} retries for {hits} dispatch and poison "
+          f"faults fired")
+
+    poison = FaultPlan(events=tuple(FaultEvent(tick=0, slot=s,
+                                               kind="poison_nan")
+                                    for s in range(CHAOS_PLAN["n_slots"])))
+    p_injector = FaultInjector(poison)
+    p_reqs = traffic()
+    p_eng, p_registry, _ = serve_run(torch, p_reqs, tree_cap=CHAOS_TREE_CAP,
+                                     injector=p_injector)
+    for a, b in zip(p_reqs, calm_reqs):
+        check(a.result["status"] == "answered",
+              f"poison: request {a.rid} ended {a.result['status']}")
+        bad = differing_answer(a.result, b.result,
+                               SUMMARY_KEYS + ("playouts", "rounds"))
+        check(not bad, f"poison: request {a.rid} differs from the fault-free "
+                       f"run in {bad}")
+    p_st = p_eng.stats()
+    poisoned = p_injector.fired.get("poison_nan", 0)
+    rejected = p_registry.snapshot()["metrics"].get(
+        "serve_guard_failures_total", {}).get("value", 0)
+    check(poisoned >= 1 and 1 <= rejected <= poisoned
+          and rejected <= p_st.n_retries <= poisoned,
+          f"poison: {poisoned} poisoned, {rejected} guard rejections, "
+          f"{p_st.n_retries} retries")
+    return {"plan": CHAOS_PLAN, "tree_cap": CHAOS_TREE_CAP,
+            "faults_fired": fired, "retries": st.n_retries,
+            "quarantined": st.n_quarantined, "seconds": wall,
+            "snapshot_device_wait_s": st.device_wait_s,
+            "equal_to_fault_free": True,
+            "poison": {"slots_poisoned_at_tick_0": poisoned,
+                       "guard_rejections": rejected,
+                       "retries": p_st.n_retries,
+                       "quarantined": p_st.n_quarantined,
+                       "equal_to_fault_free": True}}
+
+
+def phase_serve_games(torch):
+    """Serving board-game search at full width (``repro_torch.serve.games``):
+    mixed Hex 11x11 and Gomoku 15x15 traffic and a forest tenant through
+    the TPFIFO engine, each class's searches preempted between quanta yet
+    equal to direct searches; pipelined equal to blocking; sessions; chaos."""
+    import numpy as np
+    from repro_torch import rng
+    from repro_torch.core.gscpm import gscpm_search
+    from repro_torch.core.root_parallel import (gscpm_search_batch,
+                                                merged_root_stats)
+    from repro_torch.core.scheduler import make_schedule
+    from repro_torch.core.tree import root_summary
+    from repro_torch.obsv import MetricsRegistry
+    from repro_torch.obsv.trace import kernel_builds
+    from repro_torch.serve.games import GameRequest
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # warm the allocator and every op of both classes on a short serve
+    serve_run(torch, [GameRequest(rid=i, game=g, board_size=size,
+                                  n_playouts=2048, n_tasks=128, seed=i)
+                      for i, (g, size) in enumerate(SERVE_GAMES)])
+
+    # the main path: counts to 0 just before, read just after
+    reqs = serve_traffic()
+    registry = MetricsRegistry()
+    eng = serve_engine(registry=registry)
+    counters = search_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(eng.submit(r), f"serve: request {r.rid} not queued")
+    eng.run(max_ticks=1, on_exhaust="ignore")     # the first quantum
+    builds = kernel_builds()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    check(kernel_builds() == builds,
+          "serve: the kernel library was built after the first quantum")
+    check(eng.pipeline, "serve: pipelining is off on the main path")
+    check(len(eng.finished) == len(reqs), "serve: a request was not answered")
+    served_clean(eng, registry, "serve")
+
+    iters = {r.rid: sync_iterations(eng.request_cfg(r)) for r in reqs}
+    rounds = sum(iters.values()) * eng.template.vl_rounds
+    hex_iters = sum(iters[r.rid] for r in reqs if r.game == "hex")
+    check(launches["select_descent"] == rounds,
+          f"serve: select_descent launches {launches['select_descent']} != "
+          f"selection rounds {rounds}")
+    check(launches["hex_playout"] == hex_iters,
+          f"serve: hex_playout launches {launches['hex_playout']} != Hex "
+          f"sync iterations {hex_iters}")
+    check(launches["uct_select"] == 0 and launches["hex_winner"] == 0,
+          f"serve: the one-tile kernels launched: {launches}")
+    for r in reqs:
+        cfg = eng.request_cfg(r)
+        want = r.n_trees * sum(
+            int(x.active.sum()) * x.m for x in make_schedule(
+                cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler))
+        check(r.result["playouts"] == want
+              and float(r.result["root_visits"].sum()) == want,
+              f"serve: request {r.rid} committed other than its budget")
+    preempted = {g: [t.req for t in eng.finished_tickets
+                     if t.req.game == g and t.preemptions > 0
+                     and t.req.n_trees == 1] for g, _ in SERVE_GAMES}
+    check(all(preempted.values()),
+          f"serve: a class saw no preemption: "
+          f"{ {g: len(v) for g, v in preempted.items()} }")
+    stats = eng.stats()
+    served_playouts = sum(r.result["playouts"] for r in reqs)
+
+    # a preempted request of each class == its uninterrupted search
+    direct = {}
+    for g, _ in SERVE_GAMES:
+        r = min(preempted[g], key=lambda q: q.n_playouts)
+        cfg = eng.request_cfg(r)
+        tree, _ = gscpm_search(cfg.game_obj.init_board("cuda"), r.to_move,
+                               cfg, rng.key(r.seed, "cuda"))
+        bad = differing_answer(r.result,
+                               root_summary(tree, cfg.game_obj.n_actions))
+        check(not bad, f"serve: preempted {g} request {r.rid} differs from "
+                       f"gscpm_search in {bad}")
+        direct[g] = {"rid": r.rid, "playouts": r.n_playouts,
+                     "preemptions": r.result["preemptions"], "equal": True}
+        del tree
+    # the forest tenant == gscpm_search_batch
+    f = reqs[-1]
+    cfg = eng.request_cfg(f)
+    forest, fst = gscpm_search_batch(cfg.game_obj.init_board("cuda"), 1, cfg,
+                                     rng.key(f.seed, "cuda"),
+                                     n_trees=f.n_trees)
+    mv, mw = merged_root_stats(forest, cfg.game_obj.n_actions)
+    res = f.result
+    check(np.array_equal(res["root_visits"], mv.cpu().numpy())
+          and np.array_equal(res["root_wins"], mw.cpu().numpy())
+          and res["best_move"] == fst["best_move_sum"]
+          and res["best_move_vote"] == fst["best_move_vote"]
+          and res["member_best_moves"] == fst["member_best_moves"]
+          and res["tree_nodes"] == sum(fst["tree_nodes"]),
+          "serve: the forest tenant differs from gscpm_search_batch")
+    direct["forest"] = {"rid": f.rid, "n_trees": f.n_trees, "equal": True}
+    del forest
+
+    # the first 6 again, blocking then pipelined: answers equal the main
+    # run's, and device_wait_s on equal traffic
+    again = {}
+    for pipeline in (False, True):
+        sub = [fresh_request(r) for r in reqs[:SERVE_BLOCKING]]
+        e2, reg2, w2 = serve_run(torch, sub, pipeline=pipeline)
+        check(e2.pipeline == pipeline, "serve: pipelining mode not as asked")
+        served_clean(e2, reg2, f"serve again, pipeline={pipeline}")
+        for a, b in zip(sub, reqs):
+            bad = differing_answer(a.result, b.result,
+                                   SUMMARY_KEYS + ("playouts", "rounds"))
+            check(not bad, f"serve: request {a.rid} with pipeline={pipeline}"
+                           f" differs from the main run in {bad}")
+        again["pipelined" if pipeline else "blocking"] = {
+            "device_wait_s": e2.stats().device_wait_s, "seconds": w2,
+            "playouts_per_s": sum(r.result["playouts"] for r in sub) / w2}
+
+    tick = profile_one_tick(torch)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    sessions = serve_sessions(torch)
+    chaos = serve_chaos(torch)
+    by_class = {g: {"requests": sum(r.game == g and r.n_trees == 1
+                                    for r in reqs),
+                    "preemptions": sum(t.preemptions
+                                       for t in eng.finished_tickets
+                                       if t.req.game == g)}
+                for g, _ in SERVE_GAMES}
+    emit("serve_games", config={**SERVE_ENGINE, "requests": SERVE_REQUESTS,
+                                "games": [list(g) for g in SERVE_GAMES],
+                                "playouts": list(SERVE_PLAYOUTS),
+                                "playouts_per_task": SERVE_GRAIN,
+                                "forest": SERVE_FOREST},
+         served_playouts=served_playouts,
+         served_playouts_per_s=served_playouts / wall, seconds=wall,
+         queue_wait_p50_s=stats.queue_wait_p50,
+         queue_wait_p95_s=stats.queue_wait_p95,
+         latency_p50_s=stats.latency_p50, latency_p95_s=stats.latency_p95,
+         quanta=stats.quanta, preemptions=stats.n_preemptions,
+         by_class=by_class, sync_iterations=sum(iters.values()),
+         device_wait_s={"main_pipelined": stats.device_wait_s,
+                        **{f"first{SERVE_BLOCKING}_{k}": v["device_wait_s"]
+                           for k, v in again.items()}},
+         first6=again, launches=launches, one_tick=tick,
+         peak_memory_mb=peak_mb, equal_to_direct=direct,
+         pipelined_equal_blocking=True, sessions=sessions, chaos=chaos,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches, served_playouts / wall
+
+
+def fresh_request(r):
+    """A new request object with ``r``'s fields and no served state."""
+    import dataclasses
+    return dataclasses.replace(r, out=[], done=False, result=None)
+
+
 # -------------------------------------------------------------- LM kernels ----
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
     """(bound in ms, what bounds it) for `n_bytes` moved and `n_ops` done."""
@@ -2117,19 +2589,21 @@ def main(argv=None) -> int:
     phase_trace_fit(torch)
     forest_launches, forest_rate = phase_hex_forest(torch)
     gomoku_launches, gomoku_rate = phase_gomoku(torch)
+    serve_launches, serve_rate = phase_serve_games(torch)
     lm_launches, flash_by_body = phase_lm_search(torch)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
-        # Hex search, the paper's sweep and the Hex forest; select_descent
-        # on Gomoku (its
-        # playout has no kernel); uct_select (the LM descent's tile),
+        # Hex search, the paper's sweep, the Hex forest and game serving;
+        # select_descent on Gomoku (its playout has no kernel); uct_select
+        # (the LM descent's tile),
         # flash_attention and rmsnorm on the LM search; hex_winner judges
         # filled boards, which no path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
                    "hex_forest": forest_launches.get(r["name"], 0),
                    "gomoku": gomoku_launches.get(r["name"], 0),
+                   "serve_games": serve_launches.get(r["name"], 0),
                    "lm_search": lm_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
@@ -2137,7 +2611,8 @@ def main(argv=None) -> int:
             body_record["launches"] = flash_by_body[body]   # the LM path's
     emit("summary", seconds=round(time.perf_counter() - t0, 1),
          search_playouts_per_s=rate, sequential_playouts_per_s=seq_rate,
-         forest_playouts_per_s=forest_rate, gomoku_playouts_per_s=gomoku_rate)
+         forest_playouts_per_s=forest_rate, gomoku_playouts_per_s=gomoku_rate,
+         serve_playouts_per_s=serve_rate)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -81,9 +81,9 @@ def make_schedule(n_playouts: int, n_tasks: int, n_workers: int,
 def quantum_plan(n_steps: int, grain: int, policy: str) -> list[int]:
     """One request's work split into grain-sized quanta (TPFIFO serving).
 
-    The serving layer (``serve/tpfifo.py``, not ported yet) treats each
-    admitted request as
-    the paper's "logical task of fungible iterations": ``n_steps`` micro-steps
+    The serving layer (``repro_torch.serve.tpfifo``) treats each admitted
+    request as the paper's "logical task of fungible iterations": ``n_steps``
+    micro-steps
     (decode ticks or MCTS commit rounds) dispatched as a sequence of quanta.
     The split reuses ``make_schedule`` with a single lane — the request itself
     is the worker — so the serving disciplines are literally the paper's:

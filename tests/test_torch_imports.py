@@ -4,6 +4,7 @@ told otherwise, and it refuses by name what it has not ported yet."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -57,7 +58,8 @@ def test_port_files_are_found():
             "cilkview.py", "hex_paper.py", "search_metrics.py", "trace.py",
             "metrics.py", "profile.py", "fig7_speedup.py", "fig9_mapping.py",
             "table2_sequential.py", "fig5_cilkview.py", "ablate_vloss.py",
-            "run.py"} <= names
+            "run.py", "games.py", "resilience.py", "selfplay.py",
+            "store.py"} <= names
 
 
 # PyTorch's fused attention and norm are the LM kernels' library yardsticks:
@@ -107,6 +109,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.serve.mcts_decode, repro_torch.models.api, "
             "repro_torch.configs, repro_torch.configs.hex_paper, "
             "repro_torch.obsv, repro_torch.obsv.profile, "
+            "repro_torch.serve.games, repro_torch.serve.resilience, "
+            "repro_torch.launch.serve, repro_torch.launch.selfplay, "
             "benchmarks_torch.run, benchmarks_torch.fig9_mapping; "
             "from repro_torch.kernels import _build; "
             "assert _build._lib is None; "
@@ -317,18 +321,18 @@ def test_launcher_runs_this_slices_flags(flags, capsys):
     (lambda: tmd.mcts_decode_search_batch(), "A12b"),
     (lambda: tmd.run_chunk_batch(), "A12b"),
     (lambda: tmd.mcts_generate_batch(), "A12b"),
-    (lambda: tengine.SlotEngine(), "A10"),
-    (lambda: tengine.MCTSSlotEngine(), "A10"),
-    (lambda: ttpfifo.TPFIFODriver(), "A10"),
-    (lambda: ttpfifo.TPFIFOEngine(), "A10"),
-    (lambda: ttpfifo.TPFIFOMCTSEngine(), "A10"),
-    (lambda: tserve.main([]), "A10")],
+    (lambda: tengine.SlotEngine(), "A10 (LM half)"),
+    (lambda: tengine.MCTSSlotEngine(), "A10 (LM half)"),
+    (lambda: ttpfifo.run_quantum(), "A10 (LM half)"),
+    (lambda: ttpfifo.TPFIFOEngine(), "A10 (LM half)"),
+    (lambda: ttpfifo.TPFIFOMCTSEngine(), "A10 (LM half)"),
+    (lambda: tserve.main([]), "A10 (LM half)")],
     ids=["zamba2", "deepseek", "moe", "encdec", "mla", "vlm-extras",
          "search-batch", "chunk-batch", "generate-batch", "slot-engine",
-         "mcts-slot-engine", "tpfifo-driver", "tpfifo-engine",
+         "mcts-slot-engine", "tpfifo-run-quantum", "tpfifo-engine",
          "tpfifo-mcts-engine", "launch-serve"])
 def test_lm_out_of_slice_calls_raise_not_implemented(call, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=re.escape(item)):
         call()
 
 

@@ -278,3 +278,99 @@ def explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields):
     raise AssertionError(
         f"whole searches part in {fields} but stepping them side by side "
         "found no difference")
+
+
+# ------------------------------------------------------------------ serving ----
+# The serving suites (tests/test_torch_{serve_games,resilience,
+# serve_pipeline,sessions}.py) run the SAME traffic through the JAX
+# package's TPFIFOGameEngine and the port's (device="cpu") and compare what
+# the engines answer, exactly; times are never compared.
+
+# the answer of a served search, as both engines ship it (times excluded)
+RESULT_FIELDS = ("root_visits", "root_wins", "best_move", "root_value",
+                 "tree_nodes", "game", "board_size", "playouts", "rounds",
+                 "rounds_total", "deadline_expired", "status", "retries",
+                 "preemptions")
+FOREST_FIELDS = ("n_trees", "best_move_vote", "member_best_moves")
+WARM_FIELDS = ("reused_visits", "reused_nodes")
+# QueueStats' counts (its times and rates are wall-clock)
+STATS_COUNTS = ("n_finished", "n_preemptions", "tokens", "quanta",
+                "n_retries", "n_shed", "n_quarantined", "n_unfinished")
+
+
+def serving_packages():
+    """{"jax": (engine module, resilience module), "torch": (...)}."""
+    from repro.serve import games as jgames
+    from repro.serve import resilience as jres
+    from repro_torch.serve import games as tgames
+    from repro_torch.serve import resilience as tres
+    return {"jax": (jgames, jres), "torch": (tgames, tres)}
+
+
+def make_engine(pkg: str, **kw):
+    games, _ = serving_packages()[pkg]
+    if pkg == "torch":
+        kw.setdefault("device", "cpu")
+    return games.TPFIFOGameEngine(**kw)
+
+
+def result_differences(ra: dict, rb: dict, fields=RESULT_FIELDS) -> list:
+    """Fields of two served answers that differ (arrays bit for bit)."""
+    bad = []
+    for k in fields:
+        if (k in ra) != (k in rb):
+            bad.append(k)
+        elif k in ra:
+            a, b = ra[k], rb[k]
+            if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+                a, b = np.asarray(a), np.asarray(b)
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    bad.append(k)
+            elif a != b or type(a) is not type(b):
+                bad.append(k)
+    return bad
+
+
+def served_fields(res: dict) -> tuple:
+    """Every field of an answer the engines must agree on."""
+    extra = tuple(k for k in FOREST_FIELDS + WARM_FIELDS if k in res)
+    return RESULT_FIELDS + extra + (("metrics",) if "metrics" in res else ())
+
+
+def assert_same_serving(jeng, teng, jreqs, treqs):
+    """Both engines answered the same requests the same way: every answer
+    field by field, admission order, per-ticket preemptions, quanta and
+    retries, and QueueStats' counts."""
+    assert [r.rid for r in jreqs] == [r.rid for r in treqs]
+    for jr, tr in zip(jreqs, treqs):
+        assert jr.done == tr.done, jr.rid
+        if jr.result is None or tr.result is None:
+            assert jr.result is tr.result is None, jr.rid
+            continue
+        fields = served_fields(jr.result)
+        assert set(fields) == set(served_fields(tr.result)), jr.rid
+        assert result_differences(jr.result, tr.result, fields) == [], jr.rid
+    assert jeng.admission_order == teng.admission_order
+    assert ticket_log(jeng) == ticket_log(teng)
+    js, ts = jeng.stats(), teng.stats()
+    assert {k: getattr(js, k) for k in STATS_COUNTS} == {
+        k: getattr(ts, k) for k in STATS_COUNTS}
+
+
+def ticket_log(eng) -> list:
+    """(rid, preemptions, quanta, retries, committed rounds) per finished
+    ticket, in retirement order."""
+    return [(t.req.rid, t.preemptions, t.quanta, t.retries, len(t.req.out))
+            for t in eng.finished_tickets]
+
+
+def port_reference(eng, r) -> dict:
+    """The port's uninterrupted ``gscpm_search`` of a served request, as a
+    root summary: what the quantum-served search must equal bit for bit."""
+    from repro_torch.core.tree import root_summary
+    cfg = eng.request_cfg(r)
+    board = (cfg.game_obj.init_board("cpu") if r.board is None
+             else torch.tensor(np.asarray(r.board), dtype=torch.int8))
+    tree, _ = tg.gscpm_search(board, r.to_move, cfg, rng.key(r.seed, "cpu"),
+                              device="cpu")
+    return root_summary(tree, cfg.game_obj.n_actions)
