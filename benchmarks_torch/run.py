@@ -17,9 +17,11 @@ point the best of 3 searches taken in turns across the sweep; the
 sequential baseline at 2,048 playouts (1,024 for Gomoku), timed in the
 same turns.
 
-The JAX aggregator's other jobs are not here: its serving jobs (``tpfifo``,
-``serve_games``, ``serve_chaos``, ``selfplay``) and ``kernels_micro`` wait
-for ROADMAP.md item A11b (``chip_smoke.py`` times every kernel meanwhile),
+``tpfifo`` is LM serving's grain sweep: TPFIFO against lockstep on a
+Poisson trace (``benchmarks_torch.tpfifo``). The JAX aggregator's other
+jobs are not here: its game-serving jobs (``serve_games``,
+``serve_chaos``, ``selfplay``) and ``kernels_micro`` wait for ROADMAP.md
+item A11b (``chip_smoke.py`` times every kernel meanwhile),
 ``roofline_table`` for item A13. Asking for one of them by name raises.
 """
 
@@ -35,8 +37,8 @@ import traceback
 from repro_torch.configs.hex_paper import PAPER, TASK_SWEEP
 
 NOT_PORTED = {
-    "tpfifo": "A11b", "serve_games": "A11b", "serve_chaos": "A11b",
-    "selfplay": "A11b", "kernels_micro": "A11b", "roofline_table": "A13",
+    "serve_games": "A11b", "serve_chaos": "A11b", "selfplay": "A11b",
+    "kernels_micro": "A11b", "roofline_table": "A13",
 }
 
 # the card's configuration: the paper's 11x11 Hex at 256 lanes (the width
@@ -50,7 +52,7 @@ SEQ_PLAYOUTS = 2048
 
 def jobs_for(quick: bool, device) -> dict:
     from benchmarks_torch import (ablate_vloss, fig5_cilkview, fig7_speedup,
-                                  root_parallel, table2_sequential)
+                                  root_parallel, table2_sequential, tpfifo)
 
     dev = dict(device=device)
     if quick:
@@ -74,6 +76,7 @@ def jobs_for(quick: bool, device) -> dict:
                 n_playouts=64, repeats=1, **dev),
             "root_parallel_wide": lambda: root_parallel.run(
                 n_playouts=128, n_workers=8, n_tasks=16, repeats=1, **dev),
+            "tpfifo": lambda: tpfifo.run(smoke=True, **dev),
         }
     hex_kw = dict(**HEX, n_playouts=SWEEP_PLAYOUTS, repeats=3,
                   seq_playouts=SEQ_PLAYOUTS)
@@ -102,6 +105,7 @@ def jobs_for(quick: bool, device) -> dict:
         "root_parallel_wide": lambda: root_parallel.run(
             n_playouts=8192, n_workers=32, board_size=11, n_tasks=128,
             tree_cap=1 << 16, repeats=3, **dev),
+        "tpfifo": lambda: tpfifo.run(**dev),
     }
 
 
@@ -295,6 +299,10 @@ def _summ(name: str, res: dict) -> dict:
                 "t_sync_iter_s": prof["t_sync_iter_s"],
                 "overlay": {t: {k: round(v, 2) for k, v in o.items()}
                             for t, o in res["overlay"].items()}}
+    if name == "tpfifo":
+        return {"lockstep_tok_s": round(res["lockstep"]["throughput_tok_s"], 1),
+                "best_grain": res["best_grain"],
+                "best_speedup": round(res["best_speedup"], 2)}
     if name == "ablate_vloss":
         return {r: {"tree_nodes": v["tree_nodes"],
                     "playouts_per_s": round(v["playouts_per_s"])}

@@ -53,10 +53,24 @@ the port's five paths:
   its direct reference; a seeded fault plan's answers equal the fault-free
   ones; one engine tick profiled;
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
-  weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 4
+  weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 2
   tokens after a 128-token prompt, 1,024 playouts on 64 lanes per token,
   run twice with bit-identical tokens and trees, then once more, and one
-  search stepped side by side, with the kernels' plain versions.
+  search stepped side by side, with the kernels' plain versions;
+- LM serving on the same model: B = 4 token trees searched as one forest
+  (``lm_batch``: ``mcts_generate_batch`` of 2 tokens for 4 prompts of
+  128, 112, 96 and 128 tokens, 64 lanes a member, 256 playouts a token;
+  one ``uct_select`` launch a descent level for all 256 lanes, a masked
+  member left empty, run twice bit-identical, kernels against plain
+  versions member by member, in turns against 4 single searches), the
+  slot engines on a Poisson trace of 16 requests (``lm_serve``: the TPFIFO
+  engine at grain 8 and the lockstep ``SlotEngine``; grain 4 and
+  preemption give the same tokens), and search-guided serving
+  (``lm_mcts_serve``: ``TPFIFOMCTSEngine`` and ``MCTSSlotEngine`` over 6
+  requests, the first tick equal to a direct batched search).
+
+``lm_kernels`` also holds and times flash attention, rmsnorm and the
+one-tile ``uct_select`` at LM serving's shapes (``new_shapes``).
 
 Each phase prints one JSON line; any failed check ends the run with a
 non-zero exit code. Without a GPU it exits non-zero and prints no result.
@@ -164,14 +178,40 @@ CHAOS_TREE_CAP = 1 << 14
 TICK_PLAYOUTS = 16_384
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
-# 4 generated tokens, each from a GSCPM search of 1,024 playouts on 64 lanes
+# 2 generated tokens (2, not more, leaves the LM serving phases room in the
+# time limit), each from a GSCPM search of 1,024 playouts on 64 lanes
 LM_PROMPT_LEN = 128
-LM_TOKENS = 4
+LM_TOKENS = 2
 LM_PLAYOUTS = 1024
 LM_SEARCH = dict(n_workers=64, n_tasks=64, branch=8, max_depth=6,
                  rollout_len=8, tree_cap=4096)
 LM_PREFILL_SHAPE = (64, 9, 3, LM_PROMPT_LEN, 64)   # B, H, Hkv, S, d
 LM_DECODE_NORM_SHAPE = (64, 576)                  # W rows of d_model
+# LM serving, on the same model and weights:
+# - lm_batch: B = 4 prompts left-aligned in a (4, 128) matrix (true lengths
+#   128, 112, 96, 128) searched as one forest at the LM_SEARCH width, 256
+#   playouts a token (64 tasks of grain 4 on 64 lanes: one round of 4 sync
+#   iterations), 2 tokens generated by mcts_generate_batch;
+LM_BATCH_LENS = (128, 112, 96, 128)
+LM_BATCH_TOKENS = 2
+LM_BATCH_PLAYOUTS = 256
+LM_BATCH_MASK = (True, True, False, True)
+# - lm_serve: a Poisson trace (benchmarks_torch.tpfifo.make_trace) of 16
+#   requests, prompts of 16-48 tokens and every third 96-160, 32 new tokens
+#   each, no eos; TPFIFOEngine(8 slots, max_len 256, grain 8, fifo), then
+#   the same trace through SlotEngine(8 slots, max_len 256);
+LM_SERVE_TRACE = dict(n_requests=16, rate_rps=4.0, max_new=32,
+                      short_lens=(16, 48), long_lens=(96, 160), seed=0)
+LM_SERVE_ENGINE = dict(n_slots=8, max_len=256)
+LM_SERVE_GRAIN = 8
+# - lm_mcts_serve: 6 requests of 32-128-token prompts, 2 new tokens each,
+#   through TPFIFOMCTSEngine(4 slots, grain 1, preemption after 1 quantum)
+#   and MCTSSlotEngine(4 slots), at lm_batch's search configuration
+LM_MCTS_REQUESTS = 6
+LM_MCTS_PROMPTS = (32, 128)
+LM_MCTS_MAX_NEW = 2
+LM_MCTS_MAX_PROMPT_LEN = 136
+LM_MCTS_SLOTS = 4
 # kernel vs plain version on the card: the tolerances of the JAX package's
 # own kernel tests (tests/test_kernels.py) for attention. For the norm in
 # float32, where its two rounding orders are one function, one float32
@@ -2226,6 +2266,85 @@ def phase_lm_kernels(torch):
     rn_prefill_bound, _ = bound_ms(2 * (2 * B * S * D + D), 4 * B * S * D,
                                    OPS_PER_S)
 
+    def lm_kernels_new_shapes() -> dict:
+        """The LM kernels at the shapes LM serving gives them, each held
+        against its plain version there and timed eagerly, in a CUDA graph
+        and plain, beside its bound and (in turns) the library call: flash
+        attention at the batched search's prefill (4 x 64 = 256 rows, 9
+        heads over 3, 128 tokens, d 64, bf16, bshd), rmsnorm at the slot
+        engines' decode rows (8 x 576) and the batched search's (256 x
+        576), bf16, the model's order, and the one-tile uct_select at the
+        forest's descent tile (4 x 64 = 256 lanes, C = 8)."""
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa, ops, ref
+        from repro_torch.kernels import uct_select as us
+        g = torch.Generator(device="cuda").manual_seed(3)
+        bf = torch.bfloat16
+        out = {"flash_attention": [], "rmsnorm": [], "uct_select": []}
+
+        B, H, Hkv, S, d = len(LM_BATCH_LENS) * LM_SEARCH["n_workers"], 9, 3, \
+            LM_PROMPT_LEN, 64
+        q = torch.randn(B, S, H, d, generator=g, device="cuda").to(bf)
+        k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
+        v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
+        call = lambda: ops.flash_attention(q, k, v, causal=True)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        plain = lambda: ref.flash_attention(qh, kh, vh, causal=True)
+        err = float((call().float()
+                     - plain().transpose(1, 2).float()).abs().max())
+        check(err <= FLASH_TOL["bfloat16"],
+              f"flash_attention at {(B, H, Hkv, S, d)}: max abs err {err}")
+        qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+        lib = lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True)
+        ms, lib_ms = time_pair_ms(call, lib)
+        n_bytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+        n_ops = 4 * B * H * (S * (S + 1) // 2) * d
+        bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S)
+        out["flash_attention"].append({
+            "shape": [B, H, Hkv, S, d], "dtype": "bfloat16", "layout": "bshd",
+            "body": fa.body_for(q.dtype, d), "max_abs_err": err, "ms": ms,
+            "in_graph_ms": graph_ms(call), "plain_ms": time_ms(plain, iters=10,
+                                                               warmup=2),
+            "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+            "library_ms": lib_ms, "library_in_graph_ms": graph_ms(lib)})
+
+        D = 576
+        w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+        for N in (LM_SERVE_ENGINE["n_slots"], B):
+            x = torch.randn(N, 1, D, generator=g, device="cuda").to(bf)
+            call = lambda: ops.rmsnorm(x, w, 1e-5, order="model")
+            plain = lambda: ref.rmsnorm(x, w, 1e-5, order="model")
+            lib = lambda: F.rms_norm(x, (D,), w, 1e-5)
+            err = float((call().float() - plain().float()).abs().max())
+            steps = int(bf16_steps(torch, call(), plain()).max())
+            check(steps <= RMSNORM_BF16_STEPS["model"],
+                  f"rmsnorm at ({N}, {D}): {steps} bf16 steps from plain")
+            ms, lib_ms = time_pair_ms(call, lib)
+            bound, by = bound_ms(2 * (2 * N * D + D), 4 * N * D, OPS_PER_S)
+            out["rmsnorm"].append({
+                "shape": [N, 1, D], "dtype": "bfloat16", "order": "model",
+                "max_abs_err": err, "max_bf16_steps": steps, "ms": ms,
+                "in_graph_ms": graph_ms(call), "plain_ms": time_ms(plain),
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                "library_in_graph_ms": graph_ms(lib)})
+
+        W, C = B, LM_SEARCH["branch"]
+        args, nz, lm = uct_case(torch, W, C, True, True, seed=11)
+        call = lambda: us.uct_select(*args, 1.0, noise=nz, lane_mask=lm)
+        plain = lambda: ref.uct_select(*args, 1.0, noise=nz, lane_mask=lm)
+        check(torch.equal(call(), plain()),
+              f"uct_select at ({W}, {C}): picks differ from the plain version")
+        n_bytes = 4 * W * C * 4 + W * C + W * 4 + W + W * 4
+        bound, by = bound_ms(n_bytes, UCT_OPS * W * C, OPS_PER_S)
+        out["uct_select"].append({
+            "shape": [W, C], "max_abs_err": 0, "ms": time_ms(call),
+            "in_graph_ms": graph_ms(call),
+            "plain_ms": time_ms(plain, iters=50),
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
+        return out
+
+    new_shapes = lm_kernels_new_shapes()
     records = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2242,7 +2361,8 @@ def phase_lm_kernels(torch):
                          "(is_causal=True, enable_gqa=True), on contiguous "
                          "(B, H, S, d) copies and on the strided bshd views",
          "library_max_abs_diff": fa_lib_err,
-         "bodies": {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores}},
+         "bodies": {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores},
+         "new_shapes": new_shapes["flash_attention"]},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:19",
@@ -2255,7 +2375,8 @@ def phase_lm_kernels(torch):
          "host_us": rn_host,
          "prefill_shape": [B, S, D], "prefill_in_graph_ms": rn_prefill_graph,
          "prefill_bound_ms": rn_prefill_bound,
-         "prefill_library_in_graph_ms": rn_prefill_lib_graph},
+         "prefill_library_in_graph_ms": rn_prefill_lib_graph,
+         "new_shapes": new_shapes["rmsnorm"]},
     ]
     emit("lm_kernels", flash_attention=flash, rmsnorm=norm,
          timed={r["name"]: {k: r[k] for k in (
@@ -2265,11 +2386,26 @@ def phase_lm_kernels(torch):
          flash_bodies=records[0]["bodies"], rmsnorm_host_us=rn_host,
          rmsnorm_prefill={k: records[1][k] for k in (
              "prefill_shape", "prefill_in_graph_ms", "prefill_bound_ms",
-             "prefill_library_in_graph_ms")})
-    return records
+             "prefill_library_in_graph_ms")},
+         new_shapes=new_shapes)
+    return records, new_shapes["uct_select"]
 
 
 # --------------------------------------------------------------- LM search ----
+def lm_model(torch):
+    """SmolLM-135M at its published width (30 layers, d=576, 9 heads over 3
+    KV heads, vocab 49,152, bf16, flash prefill), random weights from seed
+    0: (config, params, seconds it took). ``main`` builds it once and hands
+    it to every LM phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    mcfg = get_config("smollm-135m").replace(use_flash=True)
+    t0 = time.perf_counter()
+    params = api.init_params(mcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    return mcfg, params, time.perf_counter() - t0
+
+
 def lm_path_counters():
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
     from repro_torch.kernels import uct_select as us
@@ -2426,7 +2562,7 @@ def check_decode_vs_plain(torch, params, mcfg, prompt, dcfg, key, tokens):
             **{k: v for k, v in rep.items() if k != "unexcused"}}
 
 
-def phase_lm_search(torch):
+def phase_lm_search(torch, model=None):
     """SmolLM-135M at its published width (30 layers, d=576, 9 heads over 3
     KV heads, vocab 49,152, bf16, flash prefill), random weights from seed
     0: `mcts_generate` of LM_TOKENS tokens after a 128-token prompt, run
@@ -2435,15 +2571,10 @@ def phase_lm_search(torch):
     held against the plain versions (`check_decode_steps`,
     `check_decode_vs_plain`)."""
     from repro_torch import parity, rng
-    from repro_torch.configs import get_config
     from repro_torch.core.tree import check_invariants
     from repro_torch.models import api
     from repro_torch.serve.mcts_decode import MCTSDecodeConfig, mcts_generate
-    mcfg = get_config("smollm-135m").replace(use_flash=True)
-    t_init = time.perf_counter()
-    params = api.init_params(mcfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t_init
+    mcfg, params, init_s = model or lm_model(torch)
     g = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, mcfg.vocab, (LM_PROMPT_LEN,), generator=g,
                            device="cuda", dtype=torch.int32)
@@ -2455,19 +2586,14 @@ def phase_lm_search(torch):
     mcts_generate(params, mcfg, prompt, 1,
                   MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts": 64}), key)
 
-    from repro_torch.kernels import flash_attention as fa
-    counters = lm_path_counters()
-    for c in counters.values():
-        c.launches = 0   # the LM path's counts: zeroed just before
-    fa.flash_attention.launches_by_body = dict.fromkeys(fa.BODIES, 0)
+    counters = zero_lm_counters()   # the LM path's counts: zeroed just before
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     toks_a, st_a = mcts_generate(params, mcfg, prompt, n_tokens, dcfg, key,
                                  keep_trees=True)
     torch.cuda.synchronize()
     wall_a = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
-    flash_by_body = dict(fa.flash_attention.launches_by_body)
+    launches, flash_by_body = read_lm_counters(counters)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     toks_b, st_b = mcts_generate(params, mcfg, prompt, n_tokens, dcfg, key,
@@ -2553,6 +2679,557 @@ def phase_lm_search(torch):
     return launches, flash_by_body
 
 
+# ---------------------------------------------------------------- LM serving ----
+def zero_lm_counters():
+    """Zero the LM path's kernel counters (and flash's per-body counts)
+    just before a path runs; returns the counters."""
+    from repro_torch.kernels import flash_attention as fa
+    counters = lm_path_counters()
+    for c in counters.values():
+        c.launches = 0
+    fa.flash_attention.launches_by_body = dict.fromkeys(fa.BODIES, 0)
+    return counters
+
+
+def read_lm_counters(counters):
+    from repro_torch.kernels import flash_attention as fa
+    return ({name: c.launches for name, c in counters.items()},
+            dict(fa.flash_attention.launches_by_body))
+
+
+def add_counts(*dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def lm_batch_inputs(torch, vocab):
+    """The lm_batch prompts: a (4, 128) matrix of seeded tokens, each row
+    left-aligned at its true length (LM_BATCH_LENS) with 0 after it, as
+    host arrays."""
+    import numpy as np
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, P = len(LM_BATCH_LENS), max(LM_BATCH_LENS)
+    prompts = torch.randint(1, vocab, (B, P), generator=g, device="cuda",
+                            dtype=torch.int32).cpu().numpy()
+    lens = np.asarray(LM_BATCH_LENS, np.int32)
+    prompts[np.arange(P)[None, :] >= lens[:, None]] = 0
+    return prompts, lens
+
+
+def lm_batch_cfg(n_playouts: int = LM_BATCH_PLAYOUTS):
+    from repro_torch.serve.mcts_decode import MCTSDecodeConfig
+    return MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts": n_playouts})
+
+
+def profile_one_batch_iteration(torch, params, mcfg, dcfg, prompts, lens,
+                                key):
+    """CUDA kernels, device ms and wall ms of ONE sync iteration of the
+    batched search (after three, so it descends real trees), by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import rng
+    from repro_torch.core.gscpm import fold_task_keys
+    from repro_torch.core.root_parallel import fold_member_task_keys
+    from repro_torch.core.tree import init_forest
+    from repro_torch.serve import mcts_decode as md
+    B, P = prompts.shape
+    W = dcfg.n_workers
+    dev = torch.device("cuda")
+    p = torch.as_tensor(prompts, device=dev)
+    lens_t = torch.as_tensor(lens, device=dev)
+    root, cache = md.prefill_batch(params, mcfg, p, lens_t, W,
+                                   P + dcfg.max_depth + dcfg.rollout_len + 1)
+    forest = init_forest(B, dcfg.tree_cap, dcfg.branch, 1, device=dev)
+    keys = fold_member_task_keys(
+        fold_task_keys(key, torch.arange(B, dtype=torch.int32, device=dev)),
+        torch.arange(W, dtype=torch.int32, device=dev))
+    active = torch.ones((B, W), dtype=torch.bool, device=dev)
+    step = lambda i: md._iteration(forest, params, mcfg, dcfg, cache, root,
+                                   lens_t, dcfg.cp, rng.fold_in(keys, i),
+                                   active)
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(3)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, device_ms = cuda_activity(prof)
+    check(device_ms, "torch.profiler saw no CUDA kernel in a batched "
+                     "LM iteration")
+    return {"cuda_kernels": kernels, "device_ms": device_ms,
+            "wall_ms_profiled": wall_ms}
+
+
+def check_batch_vs_plain(torch, params, mcfg, dcfg, prompts, lens, key, buf):
+    """The batched decoding, kernels vs plain versions on the same card, as
+    ``check_decode_vs_plain`` holds the single search: the generation again
+    inside ``ops.plain_versions()``, then the first search whose committed
+    tokens differ (else the first) stepped both ways, member by member
+    (``parity.step_decode_search_batch``)."""
+    import numpy as np
+    from repro_torch import parity, rng
+    from repro_torch.kernels import ops
+    from repro_torch.serve import mcts_decode as md
+    B, P = prompts.shape
+    T = buf.shape[1] - P
+    with ops.plain_versions():
+        plain, _, _ = md.mcts_generate_batch(params, mcfg, prompts, lens, T,
+                                             dcfg, key)
+    rows = np.arange(B)
+    step_tokens = lambda m: [m[rows, lens + i].tolist() for i in range(T)]
+    ours, theirs = step_tokens(buf), step_tokens(plain)
+    differ = [i for i in range(T) if ours[i] != theirs[i]]
+    i = differ[0] if differ else 0
+    matrix = np.zeros_like(buf)
+    matrix[:, :P] = prompts
+    for j in range(i):
+        matrix[rows, lens + j] = ours[j]
+    rep = parity.step_decode_search_batch(
+        params, mcfg, dcfg, torch.as_tensor(matrix), rng.fold_in(key, i),
+        ops.plain_versions, prompt_lens=lens + i)
+    scale = rep["max_abs_logit"]
+    for name in ("root_err", "leaf_err", "rollout_err"):
+        check(rep[name] <= LOGITS_TOL * scale,
+              f"LM batch {name}: kernels vs plain max abs err {rep[name]} "
+              f"above {LOGITS_TOL} x {scale}")
+    check(not rep["unexcused"],
+          "LM batch: kernels and plain versions part at decisions their "
+          f"measured error does not explain: {rep['unexcused'][:3]}")
+    check(rep["best_tokens"] == [ours[i], theirs[i]],
+          f"batch search {i} stepped ends on {rep['best_tokens']}, "
+          f"mcts_generate_batch committed {[ours[i], theirs[i]]}")
+    check(not differ or rep["parted_at"] is not None,
+          f"committed tokens of search {i} differ, yet the stepped search "
+          "never parted")
+    return {"tokens_kernels": ours, "tokens_plain": theirs,
+            "tokens_equal": not differ, "stepped_search": i,
+            "tolerance": f"logits {LOGITS_TOL} x max |logit|; a parting "
+                         "decision's margins within 2 x the measured "
+                         "difference of its numbers",
+            **{k: v for k, v in rep.items() if k != "unexcused"}}
+
+
+def batch_vs_singles(torch, params, mcfg, dcfg, prompts, lens, key):
+    """One token for the 4 prompts as ONE batched search against 4
+    single-request searches at the same budget, timed in turns (batch,
+    singles, singles, batch): seconds of each, and the batch's time per
+    token over theirs."""
+    from repro_torch import rng
+    from repro_torch.serve import mcts_decode as md
+    B = prompts.shape[0]
+
+    def batch():
+        md.mcts_decode_search_batch(params, mcfg, prompts, dcfg, key,
+                                    prompt_lens=lens)
+
+    def singles():
+        for b in range(B):
+            md.mcts_decode_search(params, mcfg,
+                                  torch.as_tensor(prompts[b, :lens[b]]),
+                                  dcfg, rng.fold_in(key, b))
+
+    runs = {"batch": [], "singles": []}
+    for name, fn in (("batch", batch), ("singles", singles),
+                     ("singles", singles), ("batch", batch)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs[name].append(time.perf_counter() - t0)
+    tb, ts = (sum(runs[k]) / len(runs[k]) for k in ("batch", "singles"))
+    return {"batch_s": runs["batch"], "singles_s": runs["singles"],
+            "batch_ms_per_token": 1e3 * tb / B,
+            "singles_ms_per_token": 1e3 * ts / B,
+            "batch_over_singles": tb / ts}
+
+
+def phase_lm_batch(torch, model=None):
+    """B = 4 token trees searched as one forest (``mcts_generate_batch``)
+    on SmolLM-135M at its published width: 2 tokens for 4 prompts of true
+    lengths 128, 112, 96 and 128 in one (4, 128) matrix, W = 64, 256
+    playouts a token. Checks: root visits == 256 on every member, the
+    forest's invariants, a masked member left at one node with best token
+    -1, the generation run twice bit-identical, kernels against plain
+    versions over the whole batched search, one ``uct_select`` launch a
+    descent level for all B·W lanes, one flash prefill (30 launches) a
+    search."""
+    import numpy as np
+    from repro_torch import parity, rng
+    from repro_torch.core.root_parallel import check_forest_invariants
+    from repro_torch.serve import mcts_decode as md
+    t_phase = time.perf_counter()
+    mcfg, params, _ = model or lm_model(torch)
+    prompts, lens = lm_batch_inputs(torch, mcfg.vocab)
+    B, P = prompts.shape
+    T, L = LM_BATCH_TOKENS, mcfg.n_layers
+    dcfg = lm_batch_cfg()
+    key = rng.key(1, "cuda")
+    # warm the allocator at the batch's shapes
+    md.mcts_decode_search_batch(params, mcfg, prompts, lm_batch_cfg(64), key,
+                                prompt_lens=lens)
+
+    counters = zero_lm_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf, new_lens, st_a = md.mcts_generate_batch(params, mcfg, prompts, lens,
+                                                 T, dcfg, key, keep_trees=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, flash_by_body = read_lm_counters(counters)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    # the same generation again: bit-identical, and the descent levels it
+    # takes (the deepest lane's depth + 1 a selection), read on the side
+    levels = []
+    orig = md.select_token_batch
+
+    def recording(tree, cfg, cp, keys):
+        out = orig(tree, cfg, cp, keys)
+        levels.append(int(out[1].max()) + 1)
+        return out
+
+    before = counters["uct_select"].launches
+    md.select_token_batch = recording
+    try:
+        buf_b, _, st_b = md.mcts_generate_batch(params, mcfg, prompts, lens,
+                                                T, dcfg, key, keep_trees=True)
+    finally:
+        md.select_token_batch = orig
+    uct_b = counters["uct_select"].launches - before
+    check(np.array_equal(buf, buf_b), "LM batch: tokens differ run to run")
+    for a, b in zip(st_a, st_b):
+        fields = parity.differing_fields(a["forest"], b["forest"])
+        check(fields == [], f"LM batch: forests differ run to run in {fields}")
+    iters = sum(s["sync_iterations"] for s in st_a)
+    check(uct_b == sum(levels) == launches["uct_select"],
+          f"uct_select launches {launches['uct_select']} (rerun {uct_b}) != "
+          f"descent levels {sum(levels)} over {iters} iterations: one "
+          "(B·W, C) tile a level for the whole forest")
+    check(launches["flash_attention"] == T * L
+          and flash_by_body == {"tensor_cores": T * L, "cuda_cores": 0},
+          f"flash_attention launches {flash_by_body} != {T} prefills of "
+          f"{B}x{dcfg.n_workers} rows x {L} layers, all tensor-core")
+    steps = iters * (dcfg.max_depth + dcfg.rollout_len) + T   # + root decodes
+    check(launches["rmsnorm"] == (2 * L + 1) * (T + steps),
+          f"rmsnorm launches {launches['rmsnorm']} != 61 x (prefills + "
+          "decode steps)")
+    for i, s in enumerate(st_a):
+        f = s["forest"]
+        check(bool((f.visits[:, 0] == LM_BATCH_PLAYOUTS).all()),
+              f"LM batch: root visits {f.visits[:, 0].tolist()} != "
+              f"{LM_BATCH_PLAYOUTS}")
+        check_forest_invariants(f, discrete_credits=False)
+        check(bool(torch.isfinite(f.wins).all()), "LM batch: non-finite wins")
+        check(s["best_tokens"] == buf[np.arange(B), lens + i].tolist(),
+              "LM batch: committed tokens are not the best root children")
+    new = buf[np.arange(B)[:, None], lens[:, None] + np.arange(T)[None, :]]
+    check(bool(((new >= 0) & (new < mcfg.vocab)).all()),
+          f"LM batch: generated tokens out of range: {new.tolist()}")
+    check(new_lens.tolist() == (lens + T).tolist(), "LM batch: lengths")
+
+    # a masked member stays a one-node tree with best token -1
+    fm, sm = md.mcts_decode_search_batch(params, mcfg, prompts, dcfg, key,
+                                         prompt_lens=lens,
+                                         request_mask=LM_BATCH_MASK)
+    dead = LM_BATCH_MASK.index(False)
+    check(sm["tree_nodes"][dead] == 1 and sm["best_tokens"][dead] == -1
+          and float(fm.visits[dead].abs().sum()) == 0.0,
+          f"LM batch: masked member searched: {sm['tree_nodes']}, "
+          f"{sm['best_tokens']}")
+    live = [b for b, m in enumerate(LM_BATCH_MASK) if m]
+    check(bool((fm.visits[live, 0] == LM_BATCH_PLAYOUTS).all()),
+          "LM batch: an active member's root visits with a masked member")
+
+    vs_plain = check_batch_vs_plain(torch, params, mcfg, dcfg, prompts, lens,
+                                    key, buf)
+    prof = profile_one_batch_iteration(torch, params, mcfg, dcfg, prompts,
+                                       lens, key)
+    turns = batch_vs_singles(torch, params, mcfg, dcfg, prompts, lens, key)
+    search_s = sum(s["time_s"] for s in st_a)
+    ms_iter = 1e3 * search_s / iters
+    emit("lm_batch",
+         config={"model": "smollm-135m", "use_flash": True,
+                 "prompt_lens": list(LM_BATCH_LENS), "matrix": [B, P],
+                 "n_tokens": T, **LM_SEARCH, "n_playouts": LM_BATCH_PLAYOUTS,
+                 "weights": "random, seed 0"},
+         tokens=new.tolist(), run_twice_bit_identical=True,
+         seconds_generate=wall, tokens_per_s=B * T / wall,
+         seconds_search=search_s, sync_iterations=iters,
+         ms_per_sync_iteration=ms_iter,
+         prefill_ms=[1e3 * s["prefill_s"] for s in st_a],
+         tree_nodes=[s["tree_nodes"] for s in st_a],
+         launches=launches, flash_attention_launches_by_body=flash_by_body,
+         descent_levels=sum(levels),
+         backup_lane_steps_per_iteration=dcfg.n_workers,
+         masked_member={"tree_nodes": sm["tree_nodes"],
+                        "best_tokens": sm["best_tokens"]},
+         one_iteration={**prof, "device_idle_share":
+                        1 - prof["device_ms"] / prof["wall_ms_profiled"],
+                        "unprofiled_ms_per_sync_iteration": ms_iter},
+         peak_memory_mb=peak_mb, batch_vs_singles_in_turns=turns,
+         kernels_vs_plain=vs_plain,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches, flash_by_body
+
+
+def lm_serve_trace(vocab):
+    from benchmarks_torch.tpfifo import make_trace
+    t = LM_SERVE_TRACE
+    return make_trace(t["n_requests"], t["rate_rps"], t["max_new"],
+                      t["short_lens"], t["long_lens"], vocab, t["seed"])
+
+
+def profile_one_step(torch, eng, reqs, warm_ticks: int = 2):
+    """CUDA kernels, device ms and wall ms of one engine tick, after
+    ``warm_ticks`` ticks on ``reqs`` (the engine is then drained)."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_ticks=warm_ticks, on_exhaust="ignore")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(max_ticks=1, on_exhaust="ignore")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    eng.run()
+    kernels, device_ms = cuda_activity(prof)
+    check(device_ms, "torch.profiler saw no CUDA kernel in a serving tick")
+    return {"cuda_kernels": kernels, "device_ms": device_ms,
+            "wall_ms": wall_ms, "device_idle_share": 1 - device_ms / wall_ms}
+
+
+def served_stats(eng, wall: float) -> dict:
+    st = eng.stats()
+    return {"tokens_per_s": st.tokens / wall, "tokens": st.tokens,
+            "seconds": wall, "queue_wait_p50_s": st.queue_wait_p50,
+            "queue_wait_p95_s": st.queue_wait_p95,
+            "latency_p50_s": st.latency_p50, "latency_p95_s": st.latency_p95,
+            "quanta": st.quanta, "preemptions": st.n_preemptions,
+            "ticks": eng._ticks, "device_wait_s": st.device_wait_s}
+
+
+def phase_lm_serve(torch, model=None):
+    """Greedy LM serving at full width on a Poisson trace of 16 requests
+    (``benchmarks_torch.tpfifo.make_trace``): the TPFIFO engine (8 slots,
+    max_len 256, grain 8), then the lockstep ``SlotEngine`` on the same
+    trace. Checks: every request ends with 32 tokens; grain 4 and
+    preemption after every quantum give the TPFIFO tokens bit for bit; no
+    kernel build during the run; flash never on the TPFIFO engine (its
+    prefill is chunked through decode), 30 launches an admission on
+    ``SlotEngine``. Reports each engine's peak memory over its timed run
+    and one profiled tick."""
+    from benchmarks_torch.tpfifo import requests
+    from repro_torch.kernels import _build
+    from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.tpfifo import TPFIFOEngine
+    t_phase = time.perf_counter()
+    mcfg, params, _ = model or lm_model(torch)
+    L = mcfg.n_layers
+    trace = lm_serve_trace(mcfg.vocab)
+    n_req, max_new = LM_SERVE_TRACE["n_requests"], LM_SERVE_TRACE["max_new"]
+    tpfifo = lambda **kw: TPFIFOEngine(
+        params, mcfg, **LM_SERVE_ENGINE, **{"grain": LM_SERVE_GRAIN, **kw},
+        eos_id=-1, device="cuda")
+    lockstep = lambda: SlotEngine(params, mcfg, **LM_SERVE_ENGINE, eos_id=-1,
+                                  device="cuda")
+    # warm: the first three requests through both engines
+    for eng in (tpfifo(), lockstep()):
+        eng.run_trace([(0.0, r) for _, r in requests(trace[:3])])
+
+    def served(eng, what):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_trace(requests(trace))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_mb[what] = torch.cuda.max_memory_allocated() / 2**20
+        got = {r.rid: list(r.out) for r in eng.finished}
+        check(len(got) == n_req and all(len(o) == max_new
+                                        for o in got.values()),
+              f"{what}: {len(got)} requests, token counts "
+              f"{sorted({len(o) for o in got.values()})}")
+        check(all(0 <= t < mcfg.vocab for o in got.values() for t in o),
+              f"{what}: a token outside the vocabulary")
+        return got, wall
+
+    peak_mb = {}
+    builds = _build.builds
+    counters = zero_lm_counters()
+    eng = tpfifo()
+    tp_out, tp_wall = served(eng, "TPFIFO")
+    tp_launches, tp_bodies = read_lm_counters(counters)
+    tp_stats = {**served_stats(eng, tp_wall),
+                "peak_memory_mb": peak_mb["TPFIFO"]}
+    check(_build.builds == builds, "TPFIFO: a kernel was built while serving")
+    check(tp_launches["flash_attention"] == 0 and tp_launches["uct_select"] == 0,
+          f"TPFIFO launches {tp_launches}: its prefill is chunked through "
+          "decode, it searches nothing")
+    check(tp_launches["rmsnorm"] > 0, "TPFIFO: rmsnorm never launched")
+
+    counters = zero_lm_counters()
+    eng = lockstep()
+    ls_out, ls_wall = served(eng, "lockstep")
+    ls_launches, ls_bodies = read_lm_counters(counters)
+    ls_stats = {**served_stats(eng, ls_wall),
+                "peak_memory_mb": peak_mb["lockstep"]}
+    check(ls_launches["flash_attention"] == L * n_req
+          and ls_bodies["tensor_cores"] == L * n_req,
+          f"SlotEngine flash launches {ls_bodies} != {L} a prefill x "
+          f"{n_req} admissions, on the tensor-core body")
+
+    # the grain moves dispatch boundaries only; preemption is lossless
+    for kw, what in (({"grain": 4}, "grain 4"),
+                     ({"preempt_quanta": 1}, "preemption")):
+        e = tpfifo(**kw)
+        for _, r in requests(trace):
+            e.submit(r)
+        e.run()
+        other = {r.rid: list(r.out) for r in e.finished}
+        check(other == tp_out, f"TPFIFO {what}: tokens differ from grain "
+                               f"{LM_SERVE_GRAIN}")
+        if kw.get("preempt_quanta"):
+            pre = e.stats().n_preemptions
+            check(pre > 0, "TPFIFO preemption: the knob never fired")
+    # TPFIFO against lockstep: reported, not checked (bf16 rounds a whole-
+    # prompt flash prefill and a token-by-token decode differently)
+    parts = {rid: next((i for i, (a, b) in enumerate(zip(o, ls_out[rid]))
+                        if a != b), None) for rid, o in tp_out.items()}
+    first_reqs = [r for _, r in requests(trace[:LM_SERVE_ENGINE["n_slots"]])]
+    emit("lm_serve",
+         config={"model": "smollm-135m", **LM_SERVE_TRACE, **LM_SERVE_ENGINE,
+                 "grain": LM_SERVE_GRAIN, "policy": "fifo", "eos_id": -1,
+                 "prompt_lens": [len(r["prompt"]) for _, r in trace]},
+         tpfifo=tp_stats, lockstep=ls_stats,
+         tpfifo_launches=tp_launches, lockstep_launches=ls_launches,
+         grain_invariant=True, preemption_lossless=True,
+         preemptions_with_preempt_quanta_1=pre, kernel_builds_while_serving=0,
+         tpfifo_vs_lockstep={
+             "requests_equal": sum(p is None for p in parts.values()),
+             "first_parting_position": parts},
+         tpfifo_profiled_tick=profile_one_step(torch, tpfifo(), first_reqs),
+         lockstep_profiled_tick=profile_one_step(
+             torch, lockstep(),
+             [r for _, r in requests(trace[:LM_SERVE_ENGINE["n_slots"]])]),
+         phase_seconds=time.perf_counter() - t_phase)
+    return (add_counts(tp_launches, ls_launches),
+            add_counts(tp_bodies, ls_bodies))
+
+
+def lm_mcts_requests(vocab):
+    """The lm_mcts_serve traffic: seeded prompts of 32-128 tokens."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    r = np.random.default_rng(3)
+    lo, hi = LM_MCTS_PROMPTS
+    return [Request(rid=i, prompt=r.integers(1, vocab, size=(int(n),)
+                                              ).astype(np.int32),
+                    max_new=LM_MCTS_MAX_NEW)
+            for i, n in enumerate(r.integers(lo, hi + 1, LM_MCTS_REQUESTS))]
+
+
+def phase_lm_mcts_serve(torch, model=None):
+    """Search-guided LM serving at full width: 6 requests through
+    ``TPFIFOMCTSEngine(4 slots, grain 1, preemption after 1 quantum)`` and
+    ``MCTSSlotEngine(4 slots)``, every committed token a batched search of
+    lm_batch's configuration. Checks: every request gets 2 tokens in the
+    vocabulary, each engine run twice gives the same tokens, and
+    ``MCTSSlotEngine``'s first tick commits exactly the best tokens of a
+    direct ``mcts_decode_search_batch`` of its token matrix, lengths, mask
+    and first split key. Reports each engine's peak memory over its timed
+    run and one profiled tick with every slot busy."""
+    import numpy as np
+    from repro_torch import rng
+    from repro_torch.serve import mcts_decode as md
+    from repro_torch.serve.engine import MCTSSlotEngine
+    from repro_torch.serve.tpfifo import TPFIFOMCTSEngine
+    t_phase = time.perf_counter()
+    mcfg, params, _ = model or lm_model(torch)
+    dcfg = lm_batch_cfg()
+    kw = dict(max_prompt_len=LM_MCTS_MAX_PROMPT_LEN, eos_id=-1, seed=0,
+              device="cuda")
+    engines = {
+        "tpfifo": lambda: TPFIFOMCTSEngine(params, mcfg, dcfg,
+                                           n_slots=LM_MCTS_SLOTS, grain=1,
+                                           preempt_quanta=1, **kw),
+        "lockstep": lambda: MCTSSlotEngine(params, mcfg, dcfg,
+                                           n_slots=LM_MCTS_SLOTS, **kw)}
+
+    def served(name):
+        eng = engines[name]()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in lm_mcts_requests(mcfg.vocab):
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        got = {r.rid: list(r.out) for r in eng.finished}
+        check(len(got) == LM_MCTS_REQUESTS
+              and all(len(o) == LM_MCTS_MAX_NEW for o in got.values())
+              and all(0 <= t < mcfg.vocab for o in got.values() for t in o),
+              f"{name} MCTS serving: {got}")
+        return eng, got, wall, peak_mb
+
+    counters = zero_lm_counters()
+    runs = {name: served(name) for name in engines}
+    launches, bodies = read_lm_counters(counters)
+    for name in engines:
+        _, again, _, _ = served(name)
+        check(again == runs[name][1],
+              f"{name} MCTS serving: tokens differ run to run")
+
+    # MCTSSlotEngine's first tick == a direct batched search
+    eng = engines["lockstep"]()
+    for r in lm_mcts_requests(mcfg.vocab):
+        eng.submit(r)
+    eng._admit_free_slots()
+    tokens, lens = eng.tokens.copy(), eng.lens.copy()
+    mask = np.array([t is not None for t in eng.active])
+    _, k = rng.split(eng.key)
+    _, direct = md.mcts_decode_search_batch(params, mcfg, tokens, dcfg, k,
+                                            prompt_lens=lens,
+                                            request_mask=mask)
+    eng.step()
+    first = [t.req.out[0] for t in eng.active if t is not None]
+    check(first == direct["best_tokens"][:len(first)],
+          f"MCTSSlotEngine's first tick {first} != the direct batched "
+          f"search {direct['best_tokens']}")
+    # one tick of each engine with every slot busy: the second token of
+    # the first LM_MCTS_SLOTS requests, after a tick that commits the first
+    ticks = {name: profile_one_step(
+                 torch, make(), lm_mcts_requests(mcfg.vocab)[:LM_MCTS_SLOTS],
+                 warm_ticks=1)
+             for name, make in engines.items()}
+    emit("lm_mcts_serve",
+         config={"model": "smollm-135m", "requests": LM_MCTS_REQUESTS,
+                 "prompt_lens": [len(r.prompt)
+                                 for r in lm_mcts_requests(mcfg.vocab)],
+                 "max_new": LM_MCTS_MAX_NEW, "slots": LM_MCTS_SLOTS,
+                 "max_prompt_len": LM_MCTS_MAX_PROMPT_LEN,
+                 "tpfifo": {"grain": 1, "preempt_quanta": 1},
+                 **LM_SEARCH, "n_playouts": LM_BATCH_PLAYOUTS},
+         tokens={name: r[1] for name, r in runs.items()},
+         run_twice_bit_identical=True, first_tick_equals_direct_search=True,
+         **{name: {**served_stats(r[0], r[2]),
+                   "searches": len(r[0].search_stats),
+                   "peak_memory_mb": r[3], "profiled_tick": ticks[name]}
+            for name, r in runs.items()},
+         launches=launches, phase_seconds=time.perf_counter() - t_phase)
+    return launches, bodies
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
@@ -2574,7 +3251,11 @@ def main(argv=None) -> int:
     smi = phase_env(torch)
     phase_build()
     phase_rng(torch)
-    records = phase_kernels(torch) + phase_lm_kernels(torch)
+    records = phase_kernels(torch)
+    lm_records, uct_lm_shapes = phase_lm_kernels(torch)
+    next(r for r in records if r["name"] == "uct_select")["new_shapes"] = \
+        uct_lm_shapes
+    records += lm_records
     if args.only_kernels:
         for r in records:
             r["launches"] = 0
@@ -2590,25 +3271,35 @@ def main(argv=None) -> int:
     forest_launches, forest_rate = phase_hex_forest(torch)
     gomoku_launches, gomoku_rate = phase_gomoku(torch)
     serve_launches, serve_rate = phase_serve_games(torch)
-    lm_launches, flash_by_body = phase_lm_search(torch)
+    model = lm_model(torch)
+    lm_launches, flash_by_body = phase_lm_search(torch, model)
+    batch_launches, batch_bodies = phase_lm_batch(torch, model)
+    lm_serve_launches, serve_bodies = phase_lm_serve(torch, model)
+    mcts_serve_launches, mcts_bodies = phase_lm_mcts_serve(torch, model)
+    flash_by_body = add_counts(flash_by_body, batch_bodies, serve_bodies,
+                               mcts_bodies)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
         # Hex search, the paper's sweep, the Hex forest and game serving;
         # select_descent on Gomoku (its playout has no kernel); uct_select
         # (the LM descent's tile),
-        # flash_attention and rmsnorm on the LM search; hex_winner judges
-        # filled boards, which no path asks for
+        # flash_attention and rmsnorm on the LM search, the batched search
+        # and the LM engines; hex_winner judges filled boards, which no
+        # path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
                    "hex_forest": forest_launches.get(r["name"], 0),
                    "gomoku": gomoku_launches.get(r["name"], 0),
                    "serve_games": serve_launches.get(r["name"], 0),
-                   "lm_search": lm_launches.get(r["name"], 0)}
+                   "lm_search": lm_launches.get(r["name"], 0),
+                   "lm_batch": batch_launches.get(r["name"], 0),
+                   "lm_serve": lm_serve_launches.get(r["name"], 0),
+                   "lm_mcts_serve": mcts_serve_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():
-            body_record["launches"] = flash_by_body[body]   # the LM path's
+            body_record["launches"] = flash_by_body[body]   # the LM paths'
     emit("summary", seconds=round(time.perf_counter() - t0, 1),
          search_playouts_per_s=rate, sequential_playouts_per_s=seq_rate,
          forest_playouts_per_s=forest_rate, gomoku_playouts_per_s=gomoku_rate,

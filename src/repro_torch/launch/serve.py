@@ -1,19 +1,25 @@
-"""Serving launcher (port of ``repro.launch.serve``): board-game search.
+"""Serving launcher (port of ``repro.launch.serve``): continuous-batched
+decode, GSCPM decoding, and board-game search.
 
-``python -m repro_torch.launch.serve --mcts-game mixed`` serves board-game
-SEARCH requests on the GPU: ``GameRequest``s through the TPFIFO quantum
-engine's per-game-class slot pools (``repro_torch.serve.games``;
-DESIGN.md §14), Hex and Gomoku alternating under ``mixed``. ``--device
-cpu`` runs the same traffic with the kernels' plain PyTorch versions. The
-flags and the printed lines are the JAX launcher's, plus ``--device``;
-``--scheduler`` may be left out (the game engine is the TPFIFO one) or
-given as ``tpfifo``, as the JAX launcher requires.
+``python -m repro_torch.launch.serve --requests 8`` serves synthetic
+prompts on the GPU through the lockstep slot engine (``SlotEngine``);
+``--scheduler tpfifo`` swaps in the work-sharing TPFIFO queue
+(grain-size-controlled continuous batching, DESIGN.md §10) and ``--mcts``
+decodes with Grain-Size Controlled MCTS instead of greedy sampling
+(``MCTSSlotEngine`` / ``TPFIFOMCTSEngine``). As in the JAX launcher the
+model is ``configs.reduced_config(--arch)`` with random weights from
+``--seed`` (``api.init_params``; not the JAX package's bits).
 
-Every LM mode of the reference (greedy or ``--mcts`` decoding through the
-lockstep or TPFIFO slot engines, ``--mcts-game`` absent) serves through
-the LM engines, not ported yet: ROADMAP.md item A10 (LM half). Those modes
-raise ``NotImplementedError`` naming it; single-request search-guided
-decoding is ``repro_torch.serve.mcts_decode.mcts_generate``.
+``--mcts-game {hex,gomoku,mixed}`` serves board-game SEARCH requests
+instead: ``GameRequest``s through the TPFIFO quantum engine's
+per-game-class slot pools (``repro_torch.serve.games``; DESIGN.md §14),
+Hex and Gomoku alternating under ``mixed``; ``--scheduler`` may be left
+out there (the game engine is the TPFIFO one) or given as ``tpfifo``, as
+the JAX launcher requires.
+
+The flags and the printed lines are the JAX launcher's, plus ``--device``
+(default ``cuda``); ``--device cpu`` runs the same traffic with the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -58,18 +64,20 @@ def main(argv=None):
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--scheduler", default=None,
                    choices=["lockstep", "tpfifo"],
-                   help="LM serving discipline (not ported yet); game "
-                        "serving runs on the TPFIFO engine")
+                   help="lockstep (the LM default): one decode step per "
+                        "tick; tpfifo: work-sharing FIFO queue dispatching "
+                        "grain-sized quanta (chunked prefill + continuous "
+                        "batching); game serving runs on the TPFIFO engine")
     p.add_argument("--grain", type=int, default=8,
-                   help="schedule rounds per TPFIFO dispatch quantum")
+                   help="micro-steps (game serving: schedule rounds) per "
+                        "TPFIFO dispatch quantum")
     p.add_argument("--policy", default="fifo",
                    choices=["fifo", "rebalance", "one_per_core"],
                    help="TPFIFO admission/requeue discipline")
     p.add_argument("--preempt-quanta", type=int, default=None,
                    help="preempt+requeue a request after this many quanta")
     p.add_argument("--mcts", action="store_true",
-                   help="decode with GSCPM search instead of greedy (LM "
-                        "serving, not ported yet)")
+                   help="decode with GSCPM search instead of greedy")
     p.add_argument("--mcts-game", default=None,
                    choices=["hex", "gomoku", "mixed"],
                    help="serve board-game search requests (no LM) through "
@@ -106,22 +114,83 @@ def main(argv=None):
                    help="quarantine a slot after this many consecutive "
                         "quantum failures (the engine serves on survivors)")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the searches (default: cuda, which "
-                        "raises without a GPU)")
+                   help="torch device of the model and the searches "
+                        "(default: cuda, which raises without a GPU)")
     args = p.parse_args(argv)
 
-    if not args.mcts_game:
-        raise NotImplementedError(
-            "launch/serve.py: the LM serving modes (lockstep and TPFIFO slot "
-            "engines, --mcts decoding) are not ported yet (ROADMAP.md item "
-            "A10 (LM half)); board-game search serves with --mcts-game, "
-            "single-request decoding is "
-            "repro_torch.serve.mcts_decode.mcts_generate")
-    if args.scheduler == "lockstep":
-        p.error("--mcts-game requires --scheduler tpfifo "
-                "(game serving runs on the quantum engine)")
+    if args.mcts_game:
+        if args.scheduler == "lockstep":
+            p.error("--mcts-game requires --scheduler tpfifo "
+                    "(game serving runs on the quantum engine)")
+        args.tracer, args.registry = make_observers(args)
+        serve_games(args)
+        return
+    args.scheduler = args.scheduler or "lockstep"
     args.tracer, args.registry = make_observers(args)
-    serve_games(args)
+    serve_lm(args)
+
+
+def serve_lm(args) -> None:
+    """Synthetic LM traffic through the lockstep or TPFIFO slot engines,
+    greedy/temperature sampling or GSCPM decoding."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serve.engine import MCTSSlotEngine, Request, SlotEngine
+    from repro_torch.serve.mcts_decode import MCTSDecodeConfig
+    from repro_torch.serve.tpfifo import TPFIFOEngine, TPFIFOMCTSEngine
+
+    cfg = configs.reduced_config(args.arch)
+    params = api.init_params(cfg, seed=args.seed, device=args.device)
+    rng = np.random.default_rng(args.seed)
+    obs = dict(tracer=args.tracer, registry=args.registry, device=args.device)
+
+    if args.mcts:
+        dcfg = MCTSDecodeConfig(n_playouts=args.playouts, n_tasks=args.tasks,
+                                n_workers=args.workers)
+        max_plen = args.prompt_len + args.max_new
+        if args.scheduler == "tpfifo":
+            eng = TPFIFOMCTSEngine(params, cfg, dcfg, n_slots=args.slots,
+                                   max_prompt_len=max_plen, grain=args.grain,
+                                   policy=args.policy,
+                                   preempt_quanta=args.preempt_quanta,
+                                   seed=args.seed, **obs)
+        else:
+            eng = MCTSSlotEngine(params, cfg, dcfg, n_slots=args.slots,
+                                 max_prompt_len=max_plen, seed=args.seed,
+                                 **obs)
+    elif args.scheduler == "tpfifo":
+        eng = TPFIFOEngine(params, cfg, n_slots=args.slots,
+                           max_len=args.prompt_len + args.max_new + 8,
+                           grain=args.grain, policy=args.policy,
+                           preempt_quanta=args.preempt_quanta,
+                           temperature=args.temperature, seed=args.seed,
+                           **obs)
+    else:
+        eng = SlotEngine(params, cfg, n_slots=args.slots,
+                         max_len=args.prompt_len + args.max_new + 8,
+                         temperature=args.temperature, seed=args.seed, **obs)
+
+    for rid in range(args.requests):
+        plen = int(rng.integers(4, args.prompt_len + 1))
+        eng.submit(Request(rid=rid,
+                           prompt=rng.integers(1, cfg.vocab, size=(plen,),
+                                               dtype=np.int64).astype(np.int32),
+                           max_new=args.max_new))
+    t0 = time.perf_counter()
+    done = eng.run()
+    dt = time.perf_counter() - t0
+    tok = sum(len(r.out) for r in done)
+    mode = ("GSCPM " if args.mcts else "") + args.scheduler
+    print(f"[{mode}] served {len(done)} requests, {tok} tokens in {dt:.1f}s "
+          f"({tok/dt:.1f} tok/s, {args.slots} slots)")
+    st = eng.stats()
+    line = (f"  queue wait p50/p95 {st.queue_wait_p50*1e3:.0f}/"
+            f"{st.queue_wait_p95*1e3:.0f} ms, latency p50/p95 "
+            f"{st.latency_p50*1e3:.0f}/{st.latency_p95*1e3:.0f} ms")
+    if args.scheduler == "tpfifo":    # lockstep engines have no quanta
+        line += f", {st.quanta} quanta, {st.n_preemptions} preemptions"
+    print(line)
+    finish_observers(args)
 
 
 def serve_games(args) -> None:

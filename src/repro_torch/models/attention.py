@@ -130,26 +130,32 @@ def gqa_prefill(params, cfg: ModelConfig, x: torch.Tensor,
     return _out_proj(out, params["wo"]), (k, v)
 
 
+def check_positions(pos, Smax: int) -> None:
+    """Raise ``IndexError`` unless every decode position lies in [0, Smax).
+
+    ``pos`` is a Python int (checked on the host) or a (B,) tensor (one
+    host read). The JAX package's per-row ``dynamic_update_slice`` clamps a
+    start that is out of range; the search never produces one, so here it
+    is an error. A decode step checks once (``transformer.lm_decode``), not
+    once per layer and cache leaf."""
+    if isinstance(pos, int):
+        if not 0 <= pos < Smax:
+            raise IndexError(f"decode position {pos} outside [0, {Smax})")
+    elif not bool(((pos >= 0) & (pos < Smax)).all()):
+        raise IndexError(f"decode positions outside [0, {Smax})")
+
+
 def update_cache_at(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     """Write ``new`` (B,1,...) into ``cache`` (B,Smax,...) at position
     ``pos`` — a Python int shared by every row, or a (B,) tensor of
-    per-row positions — IN PLACE, and return ``cache``.
-
-    The JAX package's per-row ``dynamic_update_slice`` clamps a start that
-    is out of range; the search never produces one, so here it is an error.
+    per-row positions — IN PLACE, and return ``cache``. The positions are
+    range-checked once a decode step by ``lm_decode`` (``check_positions``).
     """
-    Smax = cache.shape[1]
     if isinstance(pos, int):
-        if not 0 <= pos < Smax:
-            raise IndexError(f"update_cache_at: position {pos} outside [0, {Smax})")
         cache[:, pos] = new[:, 0].to(cache.dtype)
         return cache
-    pos = pos.reshape(-1).long()
-    # one host read: the check the JAX package does not make
-    if not bool(((pos >= 0) & (pos < Smax)).all()):
-        raise IndexError(f"update_cache_at: positions outside [0, {Smax})")
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos] = new[:, 0].to(cache.dtype)
+    cache[rows, pos.reshape(-1).long()] = new[:, 0].to(cache.dtype)
     return cache
 
 

@@ -193,8 +193,10 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
 def lm_decode(params, cfg: ModelConfig, token: torch.Tensor, pos, cache: dict):
     """One decode step. token: (B, 1) ids; pos: a Python int (every row at
     the same position) or a (B,) tensor. The cache is written in place and
-    returned with the logits (B, 1, V)."""
+    returned with the logits (B, 1, V). The positions are range-checked
+    once for the whole step (one host read for a tensor), not per layer."""
     layers, params = _layers(params, cfg), as_tree(params)
+    attn.check_positions(pos, cache["stage_0"]["k"].shape[2])
     x = embed(params["embed"], token, cfg)
     for i, stage in enumerate(layers):
         sc = cache[f"stage_{i}"]

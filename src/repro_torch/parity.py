@@ -374,21 +374,87 @@ def step_decode_search(params, mcfg, cfg, prompt: torch.Tensor,
     ``parted_at`` (the iteration after which the trees differ in shape or
     visits, else None); ``best_tokens`` of the two runs' final trees.
     """
-    from repro_torch.core.tree import best_child
     from repro_torch.models import api
-    from repro_torch.serve import mcts_decode as md
-    contexts = (contextlib.nullcontext, other)
     prompt = prompt.to(device=key.device, dtype=torch.int32).reshape(-1)
     P, W = int(prompt.shape[0]), cfg.n_workers
     max_len = P + cfg.max_depth + cfg.rollout_len + 1
+
+    def start():
+        logits, cache = api.prefill(
+            params, mcfg, {"tokens": prompt[None, :].repeat(W, 1)}, max_len)
+        return (init_tree(cfg.tree_cap, cfg.branch, 1, device=key.device),
+                cache, logits[0, 0].to(torch.float32))
+
+    return _step_both(params, mcfg, cfg, start, P, iteration_plan(cfg, key),
+                      other)
+
+
+def step_decode_search_batch(params, mcfg, cfg, prompts: torch.Tensor,
+                             key: torch.Tensor, other, *, prompt_lens=None,
+                             request_mask=None) -> dict:
+    """``step_decode_search`` for ``mcts_decode_search_batch(params, mcfg,
+    prompts, cfg, key, prompt_lens=..., request_mask=...)``: the B-member
+    forest stepped both ways, one sync iteration at a time. Each member's
+    decisions are held as a single tree's are (every parting carries its
+    ``member``); ``best_tokens`` is a pair of (B,) lists."""
+    from repro_torch.core.root_parallel import fold_member_task_keys
+    from repro_torch.core.tree import init_forest
+    from repro_torch.serve import mcts_decode as md
+    dev = key.device
+    prompts = prompts.to(device=dev, dtype=torch.int32)
+    B, P = prompts.shape
+    lens = torch.as_tensor(md._host_vector(prompt_lens, B, P, np.int32),
+                           device=dev)
+    mask = torch.as_tensor(md._host_vector(request_mask, B, True, bool),
+                           device=dev)
+    max_len = P + cfg.max_depth + cfg.rollout_len + 1
+
+    def start():
+        root, cache = md.prefill_batch(params, mcfg, prompts, lens,
+                                       cfg.n_workers, max_len)
+        return init_forest(B, cfg.tree_cap, cfg.branch, 1, device=dev), \
+            cache, root
+
+    def plan():
+        member_keys = gscpm.fold_task_keys(
+            key, torch.arange(B, dtype=torch.int32, device=dev))
+        for rnd in sched.make_schedule(cfg.n_playouts, cfg.n_tasks,
+                                       cfg.n_workers, cfg.scheduler):
+            task_keys = fold_member_task_keys(member_keys, torch.as_tensor(
+                rnd.task_ids, dtype=torch.int32, device=dev))
+            active = (torch.as_tensor(rnd.active, device=dev)[None, :]
+                      & mask[:, None])
+            for i in range(int(rnd.m)):
+                yield rng.fold_in(task_keys, i), active
+
+    return _step_both(params, mcfg, cfg, start, lens, plan(), other)
+
+
+def _members(before, a: dict, b: dict, noise_keys: torch.Tensor):
+    """(member or None, the two trees before, the two records, noise keys)
+    of each member of an iteration: the iteration itself for one tree."""
+    from repro_torch.core.tree import forest_member
+    if before[0].parent.dim() == 1:
+        yield None, before, a, b, noise_keys
+        return
+    cut = lambda rec, m: {k: [x[m] for x in v] if isinstance(v, list)
+                          else v[m] for k, v in rec.items()}
+    for m in range(before[0].parent.shape[0]):
+        yield (m, tuple(forest_member(t, m) for t in before), cut(a, m),
+               cut(b, m), noise_keys[m])
+
+
+def _step_both(params, mcfg, cfg, start, prompt_len, plan, other) -> dict:
+    """The two runs of ``step_decode_search`` / ``step_decode_search_batch``
+    from ``start()`` (tree or forest, cache, root logits) through the
+    iterations of ``plan``."""
+    from repro_torch.core.tree import best_child
+    from repro_torch.serve import mcts_decode as md
+    contexts = (contextlib.nullcontext, other)
     runs = []
     for ctx in contexts:
         with ctx():
-            logits, cache = api.prefill(
-                params, mcfg, {"tokens": prompt[None, :].repeat(W, 1)},
-                max_len)
-        runs.append([init_tree(cfg.tree_cap, cfg.branch, 1, device=key.device),
-                     cache, logits[0, 0].to(torch.float32)])
+            runs.append(list(start()))
     report = {"iterations": 0, "of": 0,
               "root_err": float((runs[0][2] - runs[1][2]).abs().max()),
               "leaf_err": 0.0, "rollout_err": 0.0,
@@ -396,7 +462,7 @@ def step_decode_search(params, mcfg, cfg, prompt: torch.Tensor,
               "partings": 0, "first": None, "unexcused": [],
               "parted_at": None}
     shape = [f for f in Tree._fields if f != "wins"]
-    for it, (keys, active) in enumerate(iteration_plan(cfg, key)):
+    for it, (keys, active) in enumerate(plan):
         report["of"] = it + 1
         parted = report["parted_at"] is not None
         before, recs = [], []
@@ -405,22 +471,27 @@ def step_decode_search(params, mcfg, cfg, prompt: torch.Tensor,
             rec: dict | None = None if parted else {}
             with ctx():
                 run[0], run[1] = md._iteration(
-                    run[0], params, mcfg, cfg, run[1], run[2], P, cfg.cp,
-                    keys, active, record=rec)
+                    run[0], params, mcfg, cfg, run[1], run[2], prompt_len,
+                    cfg.cp, keys, active, record=rec)
             recs.append(rec)
         if parted:
             continue   # two different searches now: run them to their end
         a, b = recs
         report["iterations"] = it + 1
-        found, leaf_err, rollout_err = _decode_partings(
-            tuple(before), cfg, a, b, rng.fold_in(keys, 0))
-        report["leaf_err"] = max(report["leaf_err"], leaf_err)
-        report["rollout_err"] = max(report["rollout_err"], rollout_err)
+        found = []
+        for m, bef, ra, rb, nk in _members(tuple(before), a, b,
+                                           rng.fold_in(keys, 0)):
+            got, leaf_err, rollout_err = _decode_partings(bef, cfg, ra, rb, nk)
+            for d in got:
+                d["iteration"] = it
+                if m is not None:
+                    d["member"] = m
+            found += got
+            report["leaf_err"] = max(report["leaf_err"], leaf_err)
+            report["rollout_err"] = max(report["rollout_err"], rollout_err)
         report["max_abs_logit"] = max(
             [report["max_abs_logit"], float(b["leaf_logits"].abs().max())]
             + [float(x.abs().max()) for x in b["rollout_logits"]])
-        for d in found:
-            d["iteration"] = it
         report["partings"] += len(found)
         report["first"] = report["first"] or (found[0] if found else None)
         report["unexcused"] += [d for d in found if not d["excused"]]
@@ -432,5 +503,5 @@ def step_decode_search(params, mcfg, cfg, prompt: torch.Tensor,
                     {"decision": "none", "iteration": it, "excused": False,
                      "note": "the trees part, but no decision of the "
                              "iteration does"})
-    report["best_tokens"] = [int(best_child(r[0])) for r in runs]
+    report["best_tokens"] = [best_child(r[0]).tolist() for r in runs]
     return report

@@ -1,12 +1,12 @@
 """TPFIFO serving: a work-sharing FIFO request scheduler over device slots.
 
-Port of ``repro.serve.tpfifo``, its model-free part. The paper's headline
-result is that a plain FIFO work-sharing thread pool (TPFIFO) with
-controlled task grain out-scales work-stealing runtimes for irregular MCTS
-workloads. This module carries that scheduler to the serving layer: the
-*queue* holds requests, the *workers* are the B fixed device slots of an
-engine, and the *task grain* is ``m`` micro-steps (MCTS schedule rounds)
-per dispatch.
+Port of ``repro.serve.tpfifo``. The paper's headline result is that a
+plain FIFO work-sharing thread pool (TPFIFO) with controlled task grain
+out-scales work-stealing runtimes for irregular MCTS workloads. This module
+carries that scheduler to the serving layer: the *queue* holds requests,
+the *workers* are the B fixed device slots of an engine, and the *task
+grain* is ``m`` micro-steps (decode ticks, or MCTS commit rounds) per
+dispatch.
 
 - ``TPFIFODriver`` — the host-side pool: one FIFO queue of ``Ticket``s, B
   slots, per-request quantum plans derived from
@@ -15,13 +15,35 @@ per dispatch.
   completion), tail-requeue preemption with a progress guard, retry with
   capped exponential backoff, slot quarantine, load shedding, and
   per-request telemetry summarized by ``QueueStats``. It is host code
-  only and reads no tensor; ``repro_torch.serve.games.TPFIFOGameEngine``
-  subclasses it.
+  only and reads no tensor; ``repro_torch.serve.engine``'s lockstep
+  engines subclass it with ``grain=None``, the engines below and
+  ``repro_torch.serve.games.TPFIFOGameEngine`` with a real grain.
 
-Not ported yet, ROADMAP.md item A10 (LM half): the LM engines and their
-quantum — ``LaneState``, ``sample_tokens``, ``run_quantum``, ``load_slot``,
-``free_slot``, ``reset_slot_rows``, ``TPFIFOEngine`` and
-``TPFIFOMCTSEngine``. Those names exist and refuse, naming the item.
+- ``TPFIFOEngine`` — grain-size-controlled continuous batching for LM
+  decode. One quantum (``run_quantum``) advances ALL slots ``m``
+  micro-steps; each micro-step feeds exactly one token per slot through
+  ``api.decode`` at each slot's own cursor, so *prefill and decode share
+  one step*: a slot still inside its context consumes the next context
+  token (chunked prefill), a slot past it appends the token it just
+  sampled. Shapes are fixed by ``(n_slots, max_len)`` and ``m`` is a
+  run-time value: admissions, retirements, preemptions and grain changes
+  build no kernel (the JAX package's "one compiled quantum").
+
+- ``TPFIFOMCTSEngine`` — the search-guided sibling: a quantum is ``m``
+  search+commit rounds of ``mcts_decode_search_batch`` over the fixed (B,
+  max_prompt_len) token matrix.
+
+Preemption is lossless: a preempted request keeps its generated tokens in
+``Request.out``; on re-admission its context is ``prompt ⊕ out`` and the
+chunked prefill recomputes the KV for the full context, so greedy decoding
+resumes bit-identically.
+
+Where the JAX package donates the lane state and the cache to the jitted
+quantum, the port updates them in place: ``load_slot``, ``free_slot`` and
+``reset_slot_rows`` write into the tensors they are given, ``run_quantum``
+writes the cache and the token rows. Randomness is ``repro_torch.rng``
+keys: the engine key is split once a tick, micro-step t samples with
+``fold_in(tick key, t)``.
 """
 
 from __future__ import annotations
@@ -32,11 +54,15 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
+import torch
 
+from repro_torch import rng
 from repro_torch.core import scheduler as sched
+from repro_torch.models import api
+from repro_torch.models.common import ModelConfig
 
 # ------------------------------------------------------------------ queue ----
 @dataclasses.dataclass
@@ -45,8 +71,9 @@ class Ticket:
 
     ``req`` is duck-typed: ``TPFIFODriver`` itself needs only ``rid``, ``out``
     (a list that grows with committed progress — the preemption guard's
-    currency), and ``done``. The game-search engine reads its own fields
-    (``repro_torch.serve.games.GameRequest``).
+    currency), and ``done``. The LM engines additionally read ``prompt``/
+    ``max_new`` (``repro_torch.serve.engine.Request``); the game-search
+    engine reads its own fields (``repro_torch.serve.games.GameRequest``).
     """
     req: Any
     t_submit: float
@@ -615,44 +642,356 @@ class TPFIFODriver:
             device_wait_s=self.device_wait_s)
 
 
-# ------------------------------------------------------- LM half (A10) ----
-def _refuse(name: str):
-    raise NotImplementedError(
-        f"{name}: the LM serving engines are not ported yet (ROADMAP.md item "
-        "A10 (LM half)); board-game search serves through "
-        "repro_torch.serve.games.TPFIFOGameEngine")
+# ------------------------------------------------------------- LM quantum ----
+class LaneState(NamedTuple):
+    """Per-slot device state for the unified prefill/decode micro-step.
+
+    tokens: (B, L) i32 context ⊕ generated; pos: (B,) next KV write
+    position; in_tok: (B,) token to feed at pos; ctx_len: (B,) context
+    length (prompt ⊕ resumed tokens); gen: (B,) tokens generated this
+    segment; budget: (B,) segment generation budget; live: (B,) slot is
+    occupied and unfinished (dead lanes are frozen, not skipped — the batch
+    shape never changes). Tensors on the engine's device, updated in place
+    by ``load_slot`` / ``free_slot`` and replaced field by field by
+    ``run_quantum``.
+    """
+    tokens: torch.Tensor
+    pos: torch.Tensor
+    in_tok: torch.Tensor
+    ctx_len: torch.Tensor
+    gen: torch.Tensor
+    budget: torch.Tensor
+    live: torch.Tensor
 
 
-class LaneState:
-    def __init__(self, *args, **kw):
-        _refuse("LaneState")
+def init_lane_state(n_slots: int, max_len: int, device=None) -> LaneState:
+    """B empty lanes: no context, nothing live (``device=None``: CUDA)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return LaneState(
+        tokens=torch.zeros((n_slots, max_len), **i32),
+        pos=torch.zeros((n_slots,), **i32),
+        in_tok=torch.zeros((n_slots,), **i32),
+        ctx_len=torch.ones((n_slots,), **i32),
+        gen=torch.zeros((n_slots,), **i32),
+        budget=torch.zeros((n_slots,), **i32),
+        live=torch.zeros((n_slots,), dtype=torch.bool, device=device))
 
 
-def sample_tokens(*args, **kw):
-    _refuse("sample_tokens")
+def sample_tokens(logits: torch.Tensor, key: torch.Tensor,
+                  temperature: float = 0.0) -> torch.Tensor:
+    """(B, 1, V) -> (B, 1) int32: greedy (t = 0; the first maximal index,
+    as ``jnp.argmax``) or temperature sampling.
+
+    The sample is ``jax.random.categorical(key, logits / t)`` with ONE key
+    for the whole batch: one Gumbel field of B·V values drawn from the key
+    in row-major order (``rng.gumbel(key, B·V)``), not one (V,) vector
+    broadcast over the rows, which is what ``rng.categorical`` on a single
+    key would give. Lives here (not ``serve.engine``) so the lockstep
+    engines and the quantum share one sampler; ``serve.engine`` re-exports
+    it.
+    """
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits.to(torch.float32) / temperature
+    field = rng.gumbel(key, scaled.numel()).view(scaled.shape)
+    return torch.argmax(scaled + field, dim=-1).to(torch.int32)
 
 
-def run_quantum(*args, **kw):
-    _refuse("run_quantum")
+def _sample(logits: torch.Tensor, key: torch.Tensor, temperature: float):
+    """(B, 1, V) -> (B,) — the quantum's squeezed view of sample_tokens."""
+    return sample_tokens(logits, key, temperature)[:, 0]
 
 
-def load_slot(*args, **kw):
-    _refuse("load_slot")
+def run_quantum(params, state: LaneState, cache, key: torch.Tensor, m,
+                eos_id, *, mcfg: ModelConfig, temperature: float):
+    """One grain-sized work quantum: ``m`` micro-steps for ALL B slots.
+
+    Each micro-step is one ``api.decode`` over the whole slot batch at each
+    slot's own cursor. A slot still inside its context feeds the next
+    context token (chunked prefill); a slot past its context feeds — and
+    records — the token it just sampled (decode). Finished/empty lanes are
+    frozen in place. ``m`` and ``eos_id`` are run-time values and shapes
+    are fixed by ``(n_slots, max_len)``: where the JAX package compiles one
+    program for every occupancy and grain, here no kernel is built after
+    the first quantum (``kernels._build.builds``). The cache and
+    ``state.tokens`` are written in place; returns (state, cache).
+    """
+    B, L = state.tokens.shape
+    slot = torch.arange(B, device=state.tokens.device)
+    st = state
+    for t in range(int(m)):
+        logits, cache = api.decode(params, mcfg, st.in_tok[:, None], st.pos,
+                                   cache)
+        # greedy sampling reads no key: skip micro-step t's fold_in (~120
+        # threefry launches and a host-to-device copy of t)
+        step_key = rng.fold_in(key, t) if temperature > 0.0 else key
+        sampled = _sample(logits, step_key, temperature)
+        new_pos = st.pos + 1
+        # this step fed the last context token (or a generated one): its
+        # logits produce a fresh token for the slot
+        emitting = st.live & (new_pos >= st.ctx_len)
+        wpos = torch.clamp(new_pos, max=L - 1).long()
+        cur = st.tokens[slot, wpos]
+        st.tokens[slot, wpos] = torch.where(emitting, sampled, cur)
+        gen = st.gen + emitting.to(torch.int32)
+        finished = emitting & ((sampled == eos_id) | (gen >= st.budget)
+                               | (new_pos >= L - 1))
+        st = LaneState(
+            tokens=st.tokens,
+            pos=torch.where(st.live, new_pos, st.pos),
+            in_tok=torch.where(st.live, st.tokens[slot, wpos], st.in_tok),
+            ctx_len=st.ctx_len,
+            gen=gen,
+            budget=st.budget,
+            live=st.live & ~finished,
+        )
+    return st, cache
 
 
-def free_slot(*args, **kw):
-    _refuse("free_slot")
+def load_slot(state: LaneState, s: int, row, ctx_len: int,
+              budget: int) -> LaneState:
+    """Admit one request into slot ``s`` IN PLACE: context row in (a (L,)
+    host or device vector), cursor to 0, lane made live."""
+    row = torch.as_tensor(row).to(device=state.tokens.device,
+                                  dtype=torch.int32)
+    state.tokens[s] = row
+    state.pos[s] = 0
+    state.in_tok[s] = row[0]
+    state.ctx_len[s] = int(ctx_len)
+    state.gen[s] = 0
+    state.budget[s] = int(budget)
+    state.live[s] = True
+    return state
 
 
-def reset_slot_rows(*args, **kw):
-    _refuse("reset_slot_rows")
+def free_slot(state: LaneState, s: int) -> LaneState:
+    """Kill slot ``s``'s lane IN PLACE (preemption): the frozen lane stops
+    burning micro-steps until an admission overwrites it."""
+    state.live[s] = False
+    return state
 
 
+def reset_slot_rows(cache, mask, *, axes_def: tuple):
+    """Zero the cache rows of admitted slots IN PLACE (mask: (B,) bool, on
+    the host or the cache's device), along each leaf's batch axis
+    (``axes_def``: the leaves' axes in ``api.cache_batch_axes``'s order).
+
+    Attention KV rows are masked by position anyway, but recurrent-state
+    leaves (ssm/xlstm families) are cumulative — a refilled slot must start
+    its chunked re-prefill from a clean state.
+    """
+    if isinstance(mask, torch.Tensor):
+        mask = mask.cpu().numpy()
+    leaves = cache_leaves(cache)
+    rows = torch.as_tensor(np.flatnonzero(np.asarray(mask, bool)),
+                           device=leaves[0].device)
+    for x, bi in zip(leaves, axes_def):
+        x.index_fill_(bi, rows, 0)
+    return cache
+
+
+def cache_leaves(cache) -> list:
+    """A cache tree's tensors ({stage: {k|v: tensor}}), in leaf order."""
+    return [x for stage in cache.values() for x in stage.values()]
+
+
+def cache_batch_axes(mcfg: ModelConfig, n_slots: int, max_len: int) -> tuple:
+    """Each cache leaf's batch axis, in ``cache_leaves``' order."""
+    return tuple(cache_leaves(api.cache_batch_axes(mcfg, n_slots, max_len)))
+
+
+# ------------------------------------------------------------- LM engine ----
 class TPFIFOEngine(TPFIFODriver):
-    def __init__(self, *args, **kw):
-        _refuse("TPFIFOEngine")
+    """Work-sharing FIFO LM server with grain-controlled continuous batching.
+
+    B device slots over one KV cache; each tick dispatches ONE quantum of
+    ``m`` unified prefill/decode micro-steps (``run_quantum``). Long
+    prompts prefill in grain-sized chunks alongside other slots' decodes;
+    finished slots refill from the queue at the next dispatch with no shape
+    change; over-budget requests are preempted and requeued losslessly
+    (``preempt_quanta``). ``device=None`` means CUDA; ``params`` must lie on
+    the engine's device.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, n_slots: int, max_len: int,
+                 grain: int = 8, policy: str = "fifo",
+                 preempt_quanta: int | None = None, temperature: float = 0.0,
+                 eos_id: int = 2, seed: int = 0, tracer=None, registry=None,
+                 device=None):
+        super().__init__(n_slots, grain=grain, policy=policy,
+                         preempt_quanta=preempt_quanta, tracer=tracer,
+                         registry=registry)
+        if tracer is not None:
+            # no jit cache: the watch counts builds of the kernel library
+            tracer.watch_compiles("run_quantum")
+        self.device = (torch.device("cuda") if device is None
+                       else torch.device(device))
+        self.params = params
+        self.cfg = cfg
+        self.max_len = max_len
+        self.temperature = temperature
+        self.eos_id = eos_id
+        self.key = rng.key(seed, self.device)
+
+        self.cache = api.init_cache(cfg, n_slots, max_len, device=self.device)
+        self._axes_def = cache_batch_axes(cfg, n_slots, max_len)
+        # device-resident lane state: per tick the host pulls only the (B,)
+        # live/gen vectors; token rows cross back only at retire/preempt
+        # boundaries, so tick cost is one quantum + two small transfers
+        # regardless of grain
+        self._state = init_lane_state(n_slots, max_len, self.device)
+        self._host_ctx_len = np.ones((n_slots,), np.int32)
+
+    def submit(self, req, at: float | None = None) -> bool:
+        if len(req.prompt) + req.max_new >= self.max_len:
+            raise ValueError(
+                f"prompt ({len(req.prompt)}) + max_new ({req.max_new}) "
+                f"must stay below max_len ({self.max_len})")
+        return super().submit(req, at=at)
+
+    # -- TPFIFODriver hooks ----------------------------------------------
+    def _work_estimate(self, t: Ticket) -> int:
+        # context replay + remaining generation: emission starts on the
+        # micro-step that feeds the LAST context token, so the total is
+        # ctx_len + budget - 1, not ctx_len + budget. Invariant across
+        # resumes: ctx grows by exactly the tokens the budget shrinks by.
+        return len(t.req.prompt) + t.req.max_new - 1
+
+    def _load_slot(self, s: int, t: Ticket):
+        req = t.req
+        ctx = np.asarray(list(req.prompt) + list(req.out), np.int32)
+        row = np.zeros((self.max_len,), np.int32)
+        row[:len(ctx)] = ctx
+        self._host_ctx_len[s] = len(ctx)
+        load_slot(self._state, s, torch.from_numpy(row), len(ctx),
+                  req.max_new - len(req.out))
+
+    def _sync_out(self, s: int, t: Ticket, gen: int):
+        """Pull slot ``s``'s generated tokens into ``req.out`` (boundary
+        crossings only: retire, preempt, or an explicit flush)."""
+        pl = int(self._host_ctx_len[s])
+        row = self._state.tokens[s].cpu().numpy()
+        t.req.out[t.seg_base:] = row[pl:pl + gen].tolist()
+
+    # -- tick -------------------------------------------------------------
+    def step(self) -> int:
+        admitted = self._admit_free_slots()
+        if admitted:
+            mask = np.zeros((self.B,), bool)
+            mask[admitted] = True
+            reset_slot_rows(self.cache, mask, axes_def=self._axes_def)
+        if not any(t is not None for t in self.active):
+            return 0
+        m = self._tick_m()
+        self.key, k = rng.split(self.key)
+        self._state, self.cache = run_quantum(
+            self.params, self._state, self.cache, k, m, self.eos_id,
+            mcfg=self.cfg, temperature=self.temperature)
+        # the tick's only mandatory readback: two (B,) vectors the
+        # scheduler needs; token rows stay on the device until
+        # retire/preempt
+        with self._device_wait("lane_summary"):
+            live = self._state.live.cpu().numpy()
+            gen = self._state.gen.cpu().numpy()
+
+        served = 0
+        for s, t in enumerate(self.active):
+            if t is None:
+                continue
+            served += 1
+            if not live[s]:
+                self._sync_out(s, t, int(gen[s]))
+                self._retire_slot(s)
+            elif self._should_preempt(t, progressed=bool(gen[s] > 0)):
+                self._sync_out(s, t, int(gen[s]))
+                free_slot(self._state, s)
+                self._preempt_slot(s)
+        return served
 
 
+# ----------------------------------------------------------- MCTS engine ----
 class TPFIFOMCTSEngine(TPFIFODriver):
-    def __init__(self, *args, **kw):
-        _refuse("TPFIFOMCTSEngine")
+    """TPFIFO over search-guided decoding: a quantum is ``m`` search+commit
+    rounds of ``mcts_decode_search_batch`` (each round advances all slots'
+    trees as one forest). Admission, preemption, and requeue happen only at
+    quantum boundaries — the grain dial trades scheduling responsiveness
+    against per-round host dispatch, exactly the paper's Table I axis.
+    ``device=None`` means CUDA; ``params`` must lie on the engine's device.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, dcfg, n_slots: int,
+                 max_prompt_len: int, grain: int = 4, policy: str = "fifo",
+                 preempt_quanta: int | None = None, eos_id: int = 2,
+                 seed: int = 0, tracer=None, registry=None, device=None):
+        super().__init__(n_slots, grain=grain, policy=policy,
+                         preempt_quanta=preempt_quanta, tracer=tracer,
+                         registry=registry)
+        self.device = (torch.device("cuda") if device is None
+                       else torch.device(device))
+        self.params = params
+        self.cfg = cfg
+        self.dcfg = dcfg
+        self.max_prompt_len = max_prompt_len
+        self.eos_id = eos_id
+        self.key = rng.key(seed, self.device)
+        self.tokens = np.zeros((n_slots, max_prompt_len), np.int32)
+        self.lens = np.ones((n_slots,), np.int32)
+        self._done = np.zeros((n_slots,), bool)
+        self.search_stats: collections.deque = collections.deque(maxlen=256)
+
+    def submit(self, req, at: float | None = None) -> bool:
+        if len(req.prompt) + req.max_new > self.max_prompt_len:
+            raise ValueError(
+                f"prompt ({len(req.prompt)}) + max_new ({req.max_new}) "
+                f"exceeds max_prompt_len ({self.max_prompt_len})")
+        return super().submit(req, at=at)
+
+    def _work_estimate(self, t: Ticket) -> int:
+        return t.req.max_new - len(t.req.out)     # commit rounds remaining
+
+    def _load_slot(self, s: int, t: Ticket):
+        req = t.req
+        ctx = np.asarray(list(req.prompt) + list(req.out), np.int32)
+        L = len(ctx)
+        self.tokens[s, :] = 0
+        self.tokens[s, :L] = ctx
+        self.lens[s] = L
+        self._done[s] = False
+
+    def step(self) -> int:
+        from repro_torch.serve.mcts_decode import mcts_decode_search_batch
+
+        self._admit_free_slots()
+        if not any(t is not None for t in self.active):
+            return 0
+        m = self._tick_m()
+        served = 0
+        for _ in range(m):
+            mask = np.array([t is not None for t in self.active]) & ~self._done
+            if not mask.any():
+                break           # grain tail after every slot finished
+            served = max(served, int(mask.sum()))
+            self.key, k = rng.split(self.key)
+            _, stats = mcts_decode_search_batch(
+                self.params, self.cfg, self.tokens, self.dcfg, k,
+                prompt_lens=self.lens, request_mask=mask, device=self.device)
+            self.search_stats.append(stats)
+            for s, t in enumerate(self.active):
+                if t is None or self._done[s]:
+                    continue
+                tok = int(stats["best_tokens"][s])
+                t.req.out.append(tok)
+                self.tokens[s, self.lens[s]] = tok
+                self.lens[s] += 1
+                if (tok == self.eos_id or len(t.req.out) >= t.req.max_new
+                        or self.lens[s] >= self.max_prompt_len):
+                    self._done[s] = True
+        for s, t in enumerate(self.active):
+            if t is None:
+                continue
+            if self._done[s]:
+                self._retire_slot(s)
+            elif self._should_preempt(t):
+                self._preempt_slot(s)
+        return served

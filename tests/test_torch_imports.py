@@ -111,7 +111,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.obsv, repro_torch.obsv.profile, "
             "repro_torch.serve.games, repro_torch.serve.resilience, "
             "repro_torch.launch.serve, repro_torch.launch.selfplay, "
-            "benchmarks_torch.run, benchmarks_torch.fig9_mapping; "
+            "repro_torch.serve.engine, repro_torch.serve.tpfifo, "
+            "benchmarks_torch.run, benchmarks_torch.fig9_mapping, "
+            "benchmarks_torch.tpfifo; "
             "from repro_torch.kernels import _build; "
             "assert _build._lib is None; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -197,6 +199,46 @@ def test_lm_entry_points_mean_the_gpu_and_raise_without_one():
     toks, stats = tmd.mcts_generate(params, mcfg, prompt, 1, cfg,
                                     rng.key(0, "cpu"), device="cpu")
     assert toks.shape == (5,) and stats[0]["playouts"] == 4
+
+
+def _lm_serving_calls():
+    mcfg = tconfigs.reduced_config("smollm-135m")
+    params = tapi.init_params(mcfg, seed=0, device="cpu")
+    cfg = tmd.MCTSDecodeConfig(n_workers=2, branch=2, max_depth=2,
+                               rollout_len=1, n_playouts=4, n_tasks=2,
+                               tree_cap=16)
+    prompts = torch.ones((2, 4), dtype=torch.int32)
+    key = rng.key(0, "cpu")
+    return {
+        "search-batch": lambda: tmd.mcts_decode_search_batch(
+            params, mcfg, prompts, cfg, key),
+        "generate-batch": lambda: tmd.mcts_generate_batch(
+            params, mcfg, prompts.numpy(), [4, 3], 1, cfg, key),
+        "slot-engine": lambda: tengine.SlotEngine(params, mcfg, 2, 16),
+        "mcts-slot-engine": lambda: tengine.MCTSSlotEngine(
+            params, mcfg, cfg, 2, 8),
+        "tpfifo-engine": lambda: ttpfifo.TPFIFOEngine(params, mcfg, 2, 16),
+        "tpfifo-mcts-engine": lambda: ttpfifo.TPFIFOMCTSEngine(
+            params, mcfg, cfg, 2, 8),
+        "lane-state": lambda: ttpfifo.init_lane_state(2, 16, None),
+        "launch-serve": lambda: tserve.main(["--requests", "1"]),
+        "launch-serve-tpfifo-mcts": lambda: tserve.main(
+            ["--requests", "1", "--mcts", "--scheduler", "tpfifo"]),
+    }
+
+
+@pytest.mark.parametrize("call", ["search-batch", "generate-batch",
+                                  "slot-engine", "mcts-slot-engine",
+                                  "tpfifo-engine", "tpfifo-mcts-engine",
+                                  "lane-state", "launch-serve",
+                                  "launch-serve-tpfifo-mcts"])
+def test_lm_serving_entry_points_mean_the_gpu_and_raise_without_one(call):
+    """The batched search, the LM engines and the launcher's LM modes run
+    on CUDA unless told ``device="cpu"`` / ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the rule is checked where it has none")
+    with pytest.raises(NO_GPU):
+        _lm_serving_calls()[call]()
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():
@@ -317,20 +359,8 @@ def test_launcher_runs_this_slices_flags(flags, capsys):
     (lambda: tapi.specs(ModelConfig(family="encdec")), "A12"),
     (lambda: tapi.specs(ModelConfig(use_mla=True)), "A12"),
     (lambda: tapi.prefill({}, ModelConfig(), {"tokens": torch.zeros(
-        1, 2, dtype=torch.int32), "patches": torch.zeros(1)}, 4), "A12"),
-    (lambda: tmd.mcts_decode_search_batch(), "A12b"),
-    (lambda: tmd.run_chunk_batch(), "A12b"),
-    (lambda: tmd.mcts_generate_batch(), "A12b"),
-    (lambda: tengine.SlotEngine(), "A10 (LM half)"),
-    (lambda: tengine.MCTSSlotEngine(), "A10 (LM half)"),
-    (lambda: ttpfifo.run_quantum(), "A10 (LM half)"),
-    (lambda: ttpfifo.TPFIFOEngine(), "A10 (LM half)"),
-    (lambda: ttpfifo.TPFIFOMCTSEngine(), "A10 (LM half)"),
-    (lambda: tserve.main([]), "A10 (LM half)")],
-    ids=["zamba2", "deepseek", "moe", "encdec", "mla", "vlm-extras",
-         "search-batch", "chunk-batch", "generate-batch", "slot-engine",
-         "mcts-slot-engine", "tpfifo-run-quantum", "tpfifo-engine",
-         "tpfifo-mcts-engine", "launch-serve"])
+        1, 2, dtype=torch.int32), "patches": torch.zeros(1)}, 4), "A12")],
+    ids=["zamba2", "deepseek", "moe", "encdec", "mla", "vlm-extras"])
 def test_lm_out_of_slice_calls_raise_not_implemented(call, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         call()

@@ -268,19 +268,14 @@ def test_tree_comparison_tolerates_only_wins_rounding():
     assert decode_tree_parts(tree, jtree) == ["visits"]
 
 
-@pytest.mark.parametrize("call", ["batch", "chunk_batch", "generate_batch",
-                                  "extras"])
+@pytest.mark.parametrize("call", ["extras"])
 def test_out_of_slice_calls_raise_not_implemented(call):
     _, _, tcfg, tp = model_pair(0, False)
     cfg = tmd.MCTSDecodeConfig(**DKW)
     key = rng.key(0, "cpu")
     prompt = torch.from_numpy(prompt_for(0))
-    fn = {"batch": lambda: tmd.mcts_decode_search_batch(tp, tcfg, prompt, cfg, key),
-          "chunk_batch": lambda: tmd.run_chunk_batch(),
-          "generate_batch": lambda: tmd.mcts_generate_batch(),
-          "extras": lambda: tmd.mcts_decode_search(
+    fn = {"extras": lambda: tmd.mcts_decode_search(
               tp, tcfg, prompt, cfg, key, {"patches": torch.zeros(1)},
               device="cpu")}[call]
-    with pytest.raises(NotImplementedError,
-                       match="A12" if call == "extras" else "A12b"):
+    with pytest.raises(NotImplementedError, match="A12"):
         fn()

@@ -155,7 +155,7 @@ def test_table2_fig9_and_root_parallel_run_on_the_cpu():
 
 
 @pytest.mark.parametrize("job,item", [
-    ("tpfifo", "A11b"), ("serve_games", "A11b"), ("serve_chaos", "A11b"),
+    ("serve_games", "A11b"), ("serve_chaos", "A11b"),
     ("selfplay", "A11b"), ("kernels_micro", "A11b"),
     ("roofline_table", "A13")])
 def test_run_refuses_the_jobs_of_other_items(job, item):

@@ -328,14 +328,6 @@ def test_serve_launcher_writes_trace_and_metrics(tmp_path):
     assert "trace:" in out and "metrics snapshot" in out
 
 
-@pytest.mark.parametrize("argv", [[], ["--mcts"], ["--scheduler", "tpfifo"],
-                                  ["--scheduler", "lockstep", "--mcts"]],
-                         ids=["greedy", "mcts", "tpfifo", "lockstep-mcts"])
-def test_serve_launcher_lm_modes_refuse_naming_a10_lm_half(argv):
-    with pytest.raises(NotImplementedError, match=re.escape("A10 (LM half)")):
-        tserve.main([*argv, "--device", "cpu"])
-
-
 def test_serve_launcher_game_mode_refuses_lockstep():
     with pytest.raises(SystemExit):
         tserve.main(SERVE_BASE + ["--scheduler", "lockstep",
