@@ -18,11 +18,14 @@ sequential baseline at 2,048 playouts (1,024 for Gomoku), timed in the
 same turns.
 
 ``tpfifo`` is LM serving's grain sweep: TPFIFO against lockstep on a
-Poisson trace (``benchmarks_torch.tpfifo``). The JAX aggregator's other
-jobs are not here: its game-serving jobs (``serve_games``,
-``serve_chaos``, ``selfplay``) and ``kernels_micro`` wait for ROADMAP.md
-item A11b (``chip_smoke.py`` times every kernel meanwhile),
-``roofline_table`` for item A13. Asking for one of them by name raises.
+Poisson trace (``benchmarks_torch.tpfifo``). The game-serving jobs are the
+JAX aggregator's, each in its card form (``CARD`` of its module: 11x11 for
+both classes at 256 lanes): ``serve_games`` (TPFIFO against one_per_core,
+pipelined against blocking), ``serve_chaos`` (goodput across fault rates)
+and ``selfplay`` (warm against cold moves); ``kernels_micro`` holds every
+kernel against its plain version at the JAX twin's shapes and times it.
+``roofline_table`` waits for ROADMAP.md item A13: asking for it by name
+raises.
 """
 
 from __future__ import annotations
@@ -36,10 +39,7 @@ import traceback
 
 from repro_torch.configs.hex_paper import PAPER, TASK_SWEEP
 
-NOT_PORTED = {
-    "serve_games": "A11b", "serve_chaos": "A11b", "selfplay": "A11b",
-    "kernels_micro": "A11b", "roofline_table": "A13",
-}
+NOT_PORTED = {"roofline_table": "A13"}
 
 # the card's configuration: the paper's 11x11 Hex at 256 lanes (the width
 # of every Hex phase of chip_smoke.py), Cp = 1
@@ -52,7 +52,9 @@ SEQ_PLAYOUTS = 2048
 
 def jobs_for(quick: bool, device) -> dict:
     from benchmarks_torch import (ablate_vloss, fig5_cilkview, fig7_speedup,
-                                  root_parallel, table2_sequential, tpfifo)
+                                  kernels_micro, root_parallel, selfplay,
+                                  serve_chaos, serve_games,
+                                  table2_sequential, tpfifo)
 
     dev = dict(device=device)
     if quick:
@@ -77,6 +79,13 @@ def jobs_for(quick: bool, device) -> dict:
             "root_parallel_wide": lambda: root_parallel.run(
                 n_playouts=128, n_workers=8, n_tasks=16, repeats=1, **dev),
             "tpfifo": lambda: tpfifo.run(smoke=True, **dev),
+            "serve_games": lambda: serve_games.run(smoke=True, **dev),
+            "serve_chaos": lambda: serve_chaos.run(smoke=True, **dev),
+            "selfplay": lambda: selfplay.run(smoke=True, **dev),
+            "kernels_micro": lambda: kernels_micro.run(
+                flash_shapes=((1, 2, 1, 32, 16),), uct_shapes=((16, 32),),
+                hex_shapes=((5, 8),), gomoku_shapes=((5, 4),),
+                rmsnorm_shapes=((16, 64),), iters=2, **dev),
         }
     hex_kw = dict(**HEX, n_playouts=SWEEP_PLAYOUTS, repeats=3,
                   seq_playouts=SEQ_PLAYOUTS)
@@ -106,6 +115,10 @@ def jobs_for(quick: bool, device) -> dict:
             n_playouts=8192, n_workers=32, board_size=11, n_tasks=128,
             tree_cap=1 << 16, repeats=3, **dev),
         "tpfifo": lambda: tpfifo.run(**dev),
+        "serve_games": lambda: serve_games.run(**serve_games.CARD, **dev),
+        "serve_chaos": lambda: serve_chaos.run(**serve_chaos.CARD, **dev),
+        "selfplay": lambda: selfplay.run(**selfplay.CARD, **dev),
+        "kernels_micro": lambda: kernels_micro.run(**dev),
     }
 
 
@@ -190,7 +203,10 @@ def write_mcts_trajectory(results: dict, device) -> str | None:
     """Write the root-level BENCH_mcts_torch.json from a run containing
     fig7: the search's best playouts/s and the nTasks it came at, the best
     speedup over the sequential searcher, the sequential rate, and the
-    card it was measured on."""
+    card it was measured on; with the serving jobs, the JAX aggregator's
+    ``serving``, ``pipeline``, ``selfplay`` and ``chaos`` keys, and with
+    ``kernels_micro`` the playout pipeline's ``playout_eval_per_s``, each
+    beside the card it was measured on."""
     fig7 = results.get("fig7_speedup")
     if not fig7:
         return None
@@ -257,6 +273,29 @@ def write_mcts_trajectory(results: dict, device) -> str | None:
                     "single_tree_playouts_per_s"],
                 "aggregate_speedup": {e: p["aggregate_speedup"]
                                       for e, p in res["ensemble"].items()}}
+    if "serve_games" in results:
+        # mixed Hex + Gomoku Poisson serving: move latency against
+        # one_per_core, served playouts/s, the zero-build ledger; pipelined
+        # against blocking retirement on the same trace
+        res = results["serve_games"]
+        payload["serving"] = {**res["serving"], "device": res["device"]}
+        payload["pipeline"] = {**res["pipeline"], "device": res["device"]}
+    if "selfplay" in results:
+        # cross-move tree reuse: warm against cold move latency
+        res = results["selfplay"]
+        payload["selfplay"] = {**res["selfplay"], "device": res["device"]}
+    if "serve_chaos" in results:
+        # goodput and latency against the injected fault rate
+        res = results["serve_chaos"]
+        payload["chaos"] = {**res["chaos"], "device": res["device"]}
+    km = results.get("kernels_micro")
+    if km:
+        # the fused playout's boards/s per (board, W) case and the best
+        cases = {k: v["playout_eval_per_s"]
+                 for k, v in km["hex_winner"].items()}
+        payload["playout_eval_per_s"] = max(cases.values())
+        payload["playout_eval_per_s_by_case"] = cases
+        payload["playout_eval_device"] = km["device"]
     path = os.path.join(os.path.dirname(__file__), "..",
                         "BENCH_mcts_torch.json")
     with open(path, "w") as f:
@@ -307,6 +346,41 @@ def _summ(name: str, res: dict) -> dict:
         return {r: {"tree_nodes": v["tree_nodes"],
                     "playouts_per_s": round(v["playouts_per_s"])}
                 for r, v in res["results"].items()}
+    if name == "serve_games":
+        s = res["serving"]
+        return {"playouts_per_s": round(s["playouts_per_s"]),
+                "move_latency_ms": {"p50": round(
+                    s["move_latency_p50_s"] * 1e3),
+                    "p95": round(s["move_latency_p95_s"] * 1e3)},
+                "p50_vs_one_per_core": round(s["p50_vs_one_per_core"], 2),
+                "p95_vs_one_per_core": round(s["p95_vs_one_per_core"], 2),
+                "blocking_p50_vs_one_per_core": round(
+                    s["blocking_p50_vs_one_per_core"], 2),
+                "preemptions": s["preemptions"],
+                "recompiles": s["recompiles"],
+                "pipeline_speedup": round(res["pipeline"]["speedup"], 2)}
+    if name == "serve_chaos":
+        c = res["chaos"]
+        return {"fault_rates": c["fault_rates"],
+                "goodput_playouts_per_s": [round(g) for g in
+                                           c["goodput_playouts_per_s"]],
+                "latency_p95_ms": [round(v * 1e3) for v in
+                                   c["latency_p95_s"]],
+                "retries": c["retries"], "quarantined": c["quarantined"],
+                "goodput_at_max_rate_vs_clean": round(
+                    c["goodput_at_max_rate_vs_clean"], 2),
+                "recompiles": c["recompiles"]}
+    if name == "selfplay":
+        s = res["selfplay"]
+        return {"warm_p50_ms": round(s["warm_move_p50_s"] * 1e3),
+                "cold_p50_ms": round(s["cold_move_p50_s"] * 1e3),
+                "p50_speedup": round(s["p50_speedup_warm_vs_cold"], 2),
+                "mean_retained_fraction": round(
+                    s["mean_retained_fraction"], 3),
+                "recompiles": s["recompiles"]}
+    if name == "kernels_micro":
+        return {k: list(v) for k, v in res.items()
+                if isinstance(v, dict) and k != "device"}
     return {}
 
 

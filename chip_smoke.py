@@ -48,10 +48,11 @@ the port's five paths:
   Hex 11x11 and Gomoku 15x15 (16,384 to 65,536 playouts each) and a Hex
   forest tenant of 4 trees; a preempted request of each class equals its
   direct ``gscpm_search``, the forest tenant ``gscpm_search_batch``, the
-  first 6 served again blocking equal the pipelined answers; two sessions
+  first 6 served again blocking, pipelined and one request a slot run to
+  completion (``one_per_core``) equal the main run's answers; two sessions
   play 4 Hex moves with the re-root contract held and a warm move equal to
   its direct reference; a seeded fault plan's answers equal the fault-free
-  ones; one engine tick profiled;
+  ones; one engine tick profiled (CUDA activity);
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
   weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 2
   tokens after a 128-token prompt, 1,024 playouts on 64 lanes per token,
@@ -1703,8 +1704,7 @@ def profile_one_tick(torch):
                                seed=rid))
     eng.run(max_ticks=1, on_exhaust="ignore")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(max_ticks=1, on_exhaust="ignore")
         torch.cuda.synchronize()
@@ -1878,7 +1878,8 @@ def phase_serve_games(torch):
     """Serving board-game search at full width (``repro_torch.serve.games``):
     mixed Hex 11x11 and Gomoku 15x15 traffic and a forest tenant through
     the TPFIFO engine, each class's searches preempted between quanta yet
-    equal to direct searches; pipelined equal to blocking; sessions; chaos."""
+    equal to direct searches; pipelined equal to blocking and to one
+    request a slot run to completion (one_per_core); sessions; chaos."""
     import numpy as np
     from repro_torch import rng
     from repro_torch.core.gscpm import gscpm_search
@@ -1993,9 +1994,26 @@ def phase_serve_games(torch):
                                    SUMMARY_KEYS + ("playouts", "rounds"))
             check(not bad, f"serve: request {a.rid} with pipeline={pipeline}"
                            f" differs from the main run in {bad}")
-        again["pipelined" if pipeline else "blocking"] = {
-            "device_wait_s": e2.stats().device_wait_s, "seconds": w2,
-            "playouts_per_s": sum(r.result["playouts"] for r in sub) / w2}
+        again["pipelined" if pipeline else "blocking"] = served_arm(
+            e2, sub, w2)
+    # and run to completion, one request a slot (the paper's one task a
+    # core): each answer equals the main run's, since a search's round
+    # randomness depends on its key and task ids, not on its quanta.
+    # Blocking retirement, as the fifo rerun it is read beside: a pipelined
+    # engine stamps a retirement after the next tick's launches, and a
+    # one_per_core tick spans whole searches
+    sub = [fresh_request(r) for r in reqs[:SERVE_BLOCKING]]
+    e3, reg3, w3 = serve_run(torch, sub, policy="one_per_core",
+                             preempt_quanta=None, pipeline=False)
+    served_clean(e3, reg3, "serve again, one_per_core")
+    check(e3.stats().n_preemptions == 0,
+          "serve: the one_per_core engine preempted a request")
+    for a, b in zip(sub, reqs):
+        bad = differing_answer(a.result, b.result,
+                               SUMMARY_KEYS + ("playouts", "rounds"))
+        check(not bad, f"serve: request {a.rid} run to completion "
+                       f"(one_per_core) differs from the main run in {bad}")
+    again["one_per_core"] = served_arm(e3, sub, w3)
 
     tick = profile_one_tick(torch)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -2024,9 +2042,19 @@ def phase_serve_games(torch):
                            for k, v in again.items()}},
          first6=again, launches=launches, one_tick=tick,
          peak_memory_mb=peak_mb, equal_to_direct=direct,
-         pipelined_equal_blocking=True, sessions=sessions, chaos=chaos,
+         pipelined_equal_blocking=True, one_per_core_equal_fifo=True,
+         sessions=sessions, chaos=chaos,
          phase_seconds=time.perf_counter() - t_phase)
     return launches, served_playouts / wall
+
+
+def served_arm(eng, reqs, wall: float) -> dict:
+    """Latency, throughput and host wait of one rerun of some requests."""
+    st = eng.stats()
+    return {"device_wait_s": st.device_wait_s, "seconds": wall,
+            "playouts_per_s": sum(r.result["playouts"] for r in reqs) / wall,
+            "latency_p50_s": st.latency_p50, "latency_p95_s": st.latency_p95,
+            "quanta": st.quanta, "preemptions": st.n_preemptions}
 
 
 def fresh_request(r):
@@ -2994,8 +3022,9 @@ def profile_one_step(torch, eng, reqs, warm_ticks: int = 2):
         eng.submit(r)
     eng.run(max_ticks=warm_ticks, on_exhaust="ignore")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # CUDA activity only: the host's side of the tick is its wall clock,
+    # and recording every host op of a ~120,000-kernel tick took a minute
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(max_ticks=1, on_exhaust="ignore")
         torch.cuda.synchronize()

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package (and
-its benchmarks not the JAX package's benchmarks), it runs on the GPU unless
-told otherwise, and it refuses by name what it has not ported yet."""
+its benchmarks and examples not the JAX package's), it runs on the GPU
+unless told otherwise, and it refuses by name what it has not ported yet."""
 
 import ast
 import pathlib
@@ -30,12 +30,13 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BENCH_FILES = sorted((ROOT / "benchmarks_torch").glob("*.py"))
+EXAMPLE_FILES = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + BENCH_FILES
+    ROOT / "chip_smoke.py"] + BENCH_FILES + EXAMPLE_FILES
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
-# the port's benchmarks are the JAX package's benchmarks' twins, never
-# their callers
-FORBIDDEN_IN_BENCH = FORBIDDEN | {"benchmarks"}
+# the port's benchmarks and examples are the JAX package's benchmarks' and
+# examples' twins, never their callers
+FORBIDDEN_IN_BENCH = FORBIDDEN | {"benchmarks", "examples"}
 
 
 def imported_roots(path: pathlib.Path) -> set[str]:
@@ -59,25 +60,53 @@ def test_port_files_are_found():
             "metrics.py", "profile.py", "fig7_speedup.py", "fig9_mapping.py",
             "table2_sequential.py", "fig5_cilkview.py", "ablate_vloss.py",
             "run.py", "games.py", "resilience.py", "selfplay.py",
-            "store.py"} <= names
+            "store.py", "serve_games.py", "serve_chaos.py",
+            "kernels_micro.py", "quickstart.py", "root_parallel_demo.py",
+            "chaos_serving.py", "trace_serving.py", "serve_mcts.py"} <= names
+    assert {p.name for p in EXAMPLE_FILES} == {
+        "quickstart.py", "root_parallel_demo.py", "serve_games.py",
+        "selfplay.py", "chaos_serving.py", "trace_serving.py",
+        "serve_mcts.py"}
 
 
 # PyTorch's fused attention and norm are the LM kernels' library yardsticks:
-# chip_smoke.py times them in its lm_kernels phase, nothing else calls them
+# chip_smoke.py times them in its lm_kernels phase and
+# benchmarks_torch/kernels_micro.py beside each kernel; nothing else calls
+# them
 LIBRARY_CALLS = ("scaled_dot_product_attention", "rms_norm")
+YARDSTICK_FILES = (ROOT / "chip_smoke.py",
+                   ROOT / "benchmarks_torch" / "kernels_micro.py")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_import_of_jax_or_the_jax_package(path):
-    forbidden = FORBIDDEN_IN_BENCH if path in BENCH_FILES else FORBIDDEN
+    forbidden = (FORBIDDEN_IN_BENCH if path in BENCH_FILES + EXAMPLE_FILES
+                 else FORBIDDEN)
     assert not (imported_roots(path) & forbidden)
     text = path.read_text()
     for banned in ("torch.compile", "import triton"):
         assert banned not in text, f"{banned} in {path.name}"
-    if path.name != "chip_smoke.py":
+    if path not in YARDSTICK_FILES:
         for banned in LIBRARY_CALLS:
             assert banned not in text, f"{banned} in {path.name}"
+
+
+def test_kernels_micro_calls_library_kernels_only_to_time_them():
+    """In kernels_micro.py the library calls appear in the module's
+    docstring and in the functions timed in turns with the kernels
+    (``ms_in_turns``), and nowhere else."""
+    path = YARDSTICK_FILES[1]
+    text = path.read_text()
+    tree = ast.parse(text)
+    timed = [ast.get_source_segment(text, node) for node in ast.walk(tree)
+             if isinstance(node, ast.Call)
+             and getattr(node.func, "id", None) == "ms_in_turns"]
+    doc = ast.get_docstring(tree, clean=False)
+    for name in LIBRARY_CALLS:
+        in_timed = sum(seg.count(name) for seg in timed)
+        assert in_timed >= 1, name
+        assert text.count(name) == in_timed + doc.count(name), name
 
 
 def test_chip_smoke_calls_library_kernels_only_to_time_them():
@@ -113,7 +142,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.launch.serve, repro_torch.launch.selfplay, "
             "repro_torch.serve.engine, repro_torch.serve.tpfifo, "
             "benchmarks_torch.run, benchmarks_torch.fig9_mapping, "
-            "benchmarks_torch.tpfifo; "
+            "benchmarks_torch.tpfifo, benchmarks_torch.serve_games, "
+            "benchmarks_torch.serve_chaos, benchmarks_torch.selfplay, "
+            "benchmarks_torch.kernels_micro; "
             "from repro_torch.kernels import _build; "
             "assert _build._lib is None; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -5,7 +5,8 @@ at every point of the paper's task sweep; the Fig 7 sweep and the
 virtual-loss ablation run the same searches as their JAX twins (the same
 trees: node counts, masked-lane fractions, best moves; rates are not
 compared); the configuration of the paper's experiment is the JAX
-package's; the aggregator refuses the jobs that wait for other items.
+package's; the aggregator runs the serving jobs in its small form and
+refuses the job that waits for another item.
 """
 
 import dataclasses
@@ -154,13 +155,30 @@ def test_table2_fig9_and_root_parallel_run_on_the_cpu():
     assert "multi-card" in rp["sharded_forest"]["skipped"]
 
 
-@pytest.mark.parametrize("job,item", [
-    ("serve_games", "A11b"), ("serve_chaos", "A11b"),
-    ("selfplay", "A11b"), ("kernels_micro", "A11b"),
-    ("roofline_table", "A13")])
+@pytest.mark.parametrize("job,item", [("roofline_table", "A13")])
 def test_run_refuses_the_jobs_of_other_items(job, item):
     with pytest.raises(NotImplementedError, match=item):
         run.main(["--only", f"fig5,{job}", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("job", ["serve_games", "serve_chaos", "selfplay",
+                                 "kernels_micro"])
+def test_run_quick_runs_the_a11b_job(job, tmp_path, monkeypatch, capsys):
+    """The serving benchmarks and the kernel microbenches run in the
+    aggregator's small form and save one JSON each; without fig7 in the
+    run no summary file is written."""
+    import json
+    from benchmarks_torch import common
+    monkeypatch.setattr(common, "ART_DIR", str(tmp_path))
+    summary = pathlib.Path(ROOT) / "BENCH_mcts_torch.json"
+    before = summary.stat().st_mtime_ns
+    results = run.main(["--quick", "--only", job, "--device", "cpu"])
+    assert summary.stat().st_mtime_ns == before
+    assert set(results) == {job}
+    assert [p.name for p in tmp_path.iterdir()] == [f"{job}.json"]
+    saved = json.loads((tmp_path / f"{job}.json").read_text())
+    assert saved["device"] == "cpu"
+    assert "1/1 ok" in capsys.readouterr().out
 
 
 def test_run_quick_writes_each_job(tmp_path, monkeypatch, capsys):
