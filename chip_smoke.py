@@ -68,7 +68,17 @@ the port's five paths:
   engine at grain 8 and the lockstep ``SlotEngine``; grain 4 and
   preemption give the same tokens), and search-guided serving
   (``lm_mcts_serve``: ``TPFIFOMCTSEngine`` and ``MCTSSlotEngine`` over 6
-  requests, the first tick equal to a direct batched search).
+  requests, the first tick equal to a direct batched search);
+- the MoE, MLA, hybrid and xLSTM families at their published widths
+  (``lm_families``, bf16, random weights, one model at a time):
+  qwen3-moe-235b-a22b and deepseek-v2-236b cut to their first 2 layers,
+  zamba2-7b and xlstm-1.3b whole; each serves 4 requests of 16 greedy
+  tokens through ``SlotEngine`` and ``TPFIFOEngine`` (run twice, the same
+  tokens), its logits held against the plain versions in float32 and
+  bf16 (the MoE runs on one routing, every parting of the plain run's own
+  a near-tie), and xlstm-1.3b one search-guided token (``MCTSSlotEngine``,
+  64 lanes, 256 playouts), with rmsnorm at the families' widths and flash
+  at qwen3-moe's and zamba2's head dims held and timed.
 
 ``lm_kernels`` also holds and times flash attention, rmsnorm and the
 one-tile ``uct_select`` at LM serving's shapes (``new_shapes``).
@@ -213,6 +223,43 @@ LM_MCTS_PROMPTS = (32, 128)
 LM_MCTS_MAX_NEW = 2
 LM_MCTS_MAX_PROMPT_LEN = 136
 LM_MCTS_SLOTS = 4
+# - lm_families: the MoE, MLA, hybrid and xLSTM models at their published
+#   widths, bf16, random weights from seed 0, one at a time; the two 235B
+#   MoE models cut to their first 2 layers (deepseek-v2: the dense MLA
+#   layer and one MoE layer) to fit one card, zamba2-7b and xlstm-1.3b
+#   whole. Each serves 4 requests of 32-128-token prompts, 16 greedy new
+#   tokens, through SlotEngine and TPFIFOEngine (4 slots, max_len 160,
+#   grain 8); xlstm-1.3b also one search-guided token (MCTSSlotEngine, the
+#   LM_SEARCH width, 256 playouts). The logits check prefills 64 tokens
+#   of 4 rows and decodes 2 steps.
+LM_FAMILIES = {"qwen3-moe-235b-a22b": dict(n_layers=2, use_flash=True),
+               "deepseek-v2-236b": dict(n_layers=2, use_flash=False),
+               "zamba2-7b": dict(use_flash=True),
+               "xlstm-1.3b": dict(use_flash=False)}
+LM_FAMILY_LENS = (32, 64, 96, 128)
+LM_FAMILY_MAX_NEW = 16
+LM_FAMILY_MAX_LEN = 160
+LM_FAMILY_GRAIN = 8
+LM_FAMILY_CHECK_LEN = 64
+LM_FAMILY_MCTS_ARCH = "xlstm-1.3b"
+LM_FAMILY_MCTS_PLAYOUTS = 256
+# the families' logits, kernels vs plain versions: in float32 to 1e-3 of
+# the largest logit (observed 6e-5-1.2e-4 on zamba2-7b and xlstm-1.3b:
+# float32 sums in another order through 81 / 48 layers); in bf16 the
+# kernel run at most 1.1x as far (RMS) from the float32 plain run as the
+# plain bf16 run (observed 0.98-1.00x)
+FAMILY_F32_TOL = 1e-3
+FAMILY_BF16_RMS_RATIO = 1.1
+# the families' new rmsnorm widths (D, which norm) on 4 decode rows and a
+# 128-token prefill's rows, and their flash shapes (B, H, Hkv, S, d)
+FAMILY_NORM_WIDTHS = ((4096, "qwen3-moe d_model; xLSTM mLSTM inner"),
+                      (5120, "deepseek-v2 d_model"),
+                      (3584, "zamba2 d_model"), (2048, "xLSTM d_model"),
+                      (1536, "MLA q_norm"), (512, "MLA kv_norm"),
+                      (7168, "Mamba-2 gated norm (d_inner)"))
+FAMILY_NORM_ROWS = (4, 128)
+FAMILY_FLASH_SHAPES = (((1, 64, 4, 128, 128), "qwen3-moe prefill"),
+                       ((1, 32, 32, 128, 112), "zamba2 shared attention"))
 # kernel vs plain version on the card: the tolerances of the JAX package's
 # own kernel tests (tests/test_kernels.py) for attention. For the norm in
 # float32, where its two rounding orders are one function, one float32
@@ -227,14 +274,14 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.5e-2}
 # check_flash's shapes (B, H, Hkv, S, d), each in float32 and bfloat16,
 # causal or not: the prefill shape, GQA, MQA, head dims 32-128, sequence
 # lengths off the tile size, S = 1024 (the tensor-core body's
-# double-buffered loop turns 16 times), the tensor-core body at d = 128 and
-# 96, and bf16 at d = 48, which goes to the CUDA-core body
+# double-buffered loop turns 16 times), the tensor-core body at d = 128, 96
+# and 112 (zamba2's), and bf16 at d = 48, which goes to the CUDA-core body
 FLASH_CASES = [
     (64, 9, 3, 128, 64), (2, 4, 2, 128, 64), (1, 8, 1, 128, 128),
     (2, 2, 2, 128, 80), (2, 4, 2, 129, 64), (3, 6, 2, 200, 64),
     (1, 2, 1, 1, 64), (2, 4, 4, 37, 32), (2, 9, 3, 1024, 64),
     (2, 8, 2, 200, 128), (1, 8, 2, 1024, 128), (2, 4, 2, 300, 96),
-    (2, 2, 1, 77, 48)]
+    (2, 2, 1, 77, 48), (2, 4, 2, 200, 112)]
 # check_rmsnorm's shapes (D, N), each in float32 and bfloat16 with a
 # float32 and a bfloat16 weight, both orders: D = 576, 1024 and an odd D
 # (element loads) at 64, 8192 and 7 rows; then the launcher's other
@@ -2372,7 +2419,81 @@ def phase_lm_kernels(torch):
             "bound_ms": bound, "bound_by": by, "library_ms": None})
         return out
 
+    def lm_kernels_families_shapes() -> dict:
+        """rmsnorm and flash attention at the shapes the families give them,
+        each held against its plain version there and timed eagerly (in turns
+        with the library call), in a CUDA graph and plain, beside its bound:
+        rmsnorm (bf16, the model's order) at every new width
+        (FAMILY_NORM_WIDTHS) on a decode step's rows and a prefill's; flash
+        attention (bf16, bshd) at qwen3-moe's prefill (64 heads over 4, d 128)
+        and zamba2's (32 heads, d 112), both on the tensor-core body."""
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa, ops, ref
+        g = torch.Generator(device="cuda").manual_seed(9)
+        bf = torch.bfloat16
+        out = {"rmsnorm": [], "flash_attention": []}
+        for D, where in FAMILY_NORM_WIDTHS:
+            w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+            for N in FAMILY_NORM_ROWS:
+                x = (3 * torch.randn(N, 1, D, generator=g, device="cuda")).to(bf)
+                call = lambda: ops.rmsnorm(x, w, 1e-5, order="model")
+                plain = lambda: ref.rmsnorm(x, w, 1e-5, order="model")
+                lib = lambda: F.rms_norm(x, (D,), w, 1e-5)
+                got, want = call(), plain()
+                apart = bf16_steps(torch, got, want)
+                share = float((apart > 0).float().mean())
+                steps = int(apart.max())
+                check(share <= RMSNORM_BF16_SHARE
+                      and steps <= RMSNORM_BF16_STEPS["model"],
+                      f"rmsnorm at ({N}, {D}): {share:.4%} of elements differ, "
+                      f"up to {steps} bf16 steps")
+                ms, lib_ms = time_pair_ms(call, lib)
+                bound, by = bound_ms(2 * (2 * N * D + D), 4 * N * D, OPS_PER_S)
+                out["rmsnorm"].append({
+                    "shape": [N, 1, D], "width_of": where, "dtype": "bfloat16",
+                    "order": "model",
+                    "max_abs_err": float((got.float() - want.float()).abs().max()),
+                    "share_differing": share, "max_bf16_steps": steps, "ms": ms,
+                    "in_graph_ms": graph_ms(call), "plain_ms": time_ms(plain),
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                    "library_in_graph_ms": graph_ms(lib)})
+        for (B, H, Hkv, S, d), where in FAMILY_FLASH_SHAPES:
+            q = torch.randn(B, S, H, d, generator=g, device="cuda").to(bf)
+            k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
+            v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
+            body = fa.body_for(q.dtype, d)
+            call = lambda: ops.flash_attention(q, k, v, causal=True)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            plain = lambda: ref.flash_attention(qh, kh, vh, causal=True)
+            before = dict(fa.flash_attention.launches_by_body)
+            got = call()
+            check(fa.flash_attention.launches_by_body[body] == before[body] + 1,
+                  f"flash_attention at {(B, H, Hkv, S, d)}: not the {body} body")
+            err = float((got.float() - plain().transpose(1, 2).float()).abs().max())
+            check(err <= FLASH_TOL["bfloat16"],
+                  f"flash_attention at {(B, H, Hkv, S, d)}: max abs err {err} "
+                  f"above {FLASH_TOL['bfloat16']}")
+            qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+            lib = lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True)
+            ms, lib_ms = time_pair_ms(call, lib)
+            n_bytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+            n_ops = 4 * B * H * (S * (S + 1) // 2) * d
+            # the tensor-core body's products are bf16 on the tensor cores, the
+            # CUDA-core body's float32 on the CUDA cores
+            bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S
+                                 if body == "tensor_cores" else OPS_PER_S)
+            out["flash_attention"].append({
+                "shape": [B, H, Hkv, S, d], "of": where, "dtype": "bfloat16",
+                "layout": "bshd", "body": body, "max_abs_err": err, "ms": ms,
+                "in_graph_ms": graph_ms(call),
+                "plain_ms": time_ms(plain, iters=10, warmup=2),
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                "library_in_graph_ms": graph_ms(lib)})
+        return out
+
     new_shapes = lm_kernels_new_shapes()
+    families_shapes = lm_kernels_families_shapes()
     records = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2390,7 +2511,8 @@ def phase_lm_kernels(torch):
                          "(B, H, S, d) copies and on the strided bshd views",
          "library_max_abs_diff": fa_lib_err,
          "bodies": {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores},
-         "new_shapes": new_shapes["flash_attention"]},
+         "new_shapes": new_shapes["flash_attention"],
+         "families_shapes": families_shapes["flash_attention"]},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:19",
@@ -2404,7 +2526,8 @@ def phase_lm_kernels(torch):
          "prefill_shape": [B, S, D], "prefill_in_graph_ms": rn_prefill_graph,
          "prefill_bound_ms": rn_prefill_bound,
          "prefill_library_in_graph_ms": rn_prefill_lib_graph,
-         "new_shapes": new_shapes["rmsnorm"]},
+         "new_shapes": new_shapes["rmsnorm"],
+         "families_shapes": families_shapes["rmsnorm"]},
     ]
     emit("lm_kernels", flash_attention=flash, rmsnorm=norm,
          timed={r["name"]: {k: r[k] for k in (
@@ -2415,7 +2538,7 @@ def phase_lm_kernels(torch):
          rmsnorm_prefill={k: records[1][k] for k in (
              "prefill_shape", "prefill_in_graph_ms", "prefill_bound_ms",
              "prefill_library_in_graph_ms")},
-         new_shapes=new_shapes)
+         new_shapes=new_shapes, families_shapes=families_shapes)
     return records, new_shapes["uct_select"]
 
 
@@ -3259,6 +3382,366 @@ def phase_lm_mcts_serve(torch, model=None):
     return launches, bodies
 
 
+# ------------------------------------------------------------- LM families ----
+def family_model(torch, arch: str):
+    """One LM_FAMILIES model at its published widths, bf16, random weights
+    from seed 0: (config, params, {"parameters", "init_s",
+    "memory_after_init_mb"})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    mcfg = get_config(arch).replace(**LM_FAMILIES[arch])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(mcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    return mcfg, params, {
+        "parameters": api.n_params(mcfg), "init_s": time.perf_counter() - t0,
+        "memory_after_init_mb": torch.cuda.memory_allocated() / 2**20}
+
+
+def family_requests(vocab):
+    """LM_FAMILY_LENS prompts of seeded tokens, LM_FAMILY_MAX_NEW each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    r = np.random.default_rng(5)
+    return [Request(rid=i, prompt=r.integers(1, vocab, size=(n,)).astype(
+        np.int32), max_new=LM_FAMILY_MAX_NEW)
+        for i, n in enumerate(LM_FAMILY_LENS)]
+
+
+@contextlib.contextmanager
+def moe_routing(torch, replay=None):
+    """Record every MoE router decision (``models.moe.router_topk``: the
+    float32 router probabilities and the top-k experts, call by call) into
+    the list this yields; with ``replay`` (an earlier run's list), route
+    each call by the earlier run's experts instead, each weighted by this
+    run's own probability of it (what the router would give for that
+    choice), while still recording this run's own choices."""
+    from repro_torch.models import moe
+    own = moe.router_topk
+    calls: list = []
+
+    def routed(logits, k, norm_topk):
+        topi, topw = own(logits, k, norm_topk)
+        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        calls.append((probs, topi))
+        if replay is None:
+            return topi, topw
+        fixed = replay[len(calls) - 1][1]
+        w = torch.gather(probs, -1, fixed.long())
+        if norm_topk:
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return fixed, w
+
+    moe.router_topk = routed
+    try:
+        yield calls
+    finally:
+        moe.router_topk = own
+
+
+def routing_partings(torch, a: list, b: list) -> dict:
+    """Where two runs' MoE routing parts: per router call the tokens whose
+    top-k lists differ, and for each the gap, in run b's probabilities,
+    between the experts the two runs chose at the first differing rank,
+    against the largest difference of that token's probabilities between
+    the runs. A parting is excused when its gap is within 2x that
+    difference (a near-tie that rounding decides)."""
+    parted = unexcused = 0
+    worst_ratio = 0.0
+    for (pa, ia), (pb, ib) in zip(a, b):
+        diff = (ia != ib)
+        rows = diff.any(-1)
+        if not bool(rows.any()):
+            continue
+        first = diff.float().argmax(-1, keepdim=True)
+        ea, eb = torch.gather(ia, -1, first).long(), torch.gather(ib, -1, first).long()
+        gap = (torch.gather(pb, -1, ea) - torch.gather(pb, -1, eb)).abs()[..., 0]
+        measured = (pa - pb).abs().amax(-1)
+        ratio = (gap / torch.clamp(measured, min=1e-12))[rows]
+        parted += int(rows.sum())
+        unexcused += int((ratio > 2.0).sum())
+        worst_ratio = max(worst_ratio, float(ratio.max()))
+    return {"router_calls": len(a), "tokens_parted": parted,
+            "tokens_unexcused": unexcused,
+            "max_gap_over_measured_diff": worst_ratio}
+
+
+def family_logits_vs_plain(torch, params, mcfg):
+    """The model's prefill (LM_FAMILY_CHECK_LEN seeded tokens on each of
+    len(LM_FAMILY_LENS) rows) and two decode steps on seeded tokens, with
+    the kernels and with their plain versions, in bf16 and on a float32
+    copy of the weights:
+
+    - float32: kernels vs plain within FAMILY_F32_TOL of the largest logit;
+    - bf16: the kernel run no farther from the float32 plain run than the
+      plain bf16 run is (RMS over every logit, at most
+      FAMILY_BF16_RMS_RATIO times). Rounding to bf16 alone moves a deep
+      random-weight model's logits by about half their range (zamba2-7b
+      and xlstm-1.3b, measured on the card), so two bf16 runs that round
+      differently part by as much, whoever rounds;
+    - bf16, the MoE models (2 layers, where that does not happen): kernels
+      vs plain within LOGITS_TOL of the largest logit.
+
+    On a MoE model every run takes the bf16 kernel run's expert choices
+    (``moe_routing``): a near-tie among 128 or 160 router probabilities
+    flips with a rounding and moves its token's output far more than any
+    kernel does; each run's own choices are recorded beside, and every
+    place where the plain run's part from the kernel run's must be such a
+    near-tie (``routing_partings``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import TransformerLM
+    B, P = len(LM_FAMILY_LENS), LM_FAMILY_CHECK_LEN
+    g = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(1, mcfg.vocab, (B, P + 2), generator=g,
+                         device="cuda", dtype=torch.int32)
+
+    def run(ctx, prm, cfg, replay):
+        with ctx(), moe_routing(torch, replay) as calls:
+            logits, cache = api.prefill(prm, cfg, {"tokens": toks[:, :P]},
+                                        P + 2)
+            out = [logits[:, 0].float()]
+            for t in range(2):
+                logits, cache = api.decode(prm, cfg, toks[:, P + t:P + t + 1],
+                                           P + t, cache)
+                out.append(logits[:, 0].float())
+        return out, calls
+
+    kernel, route = run(contextlib.nullcontext, params, mcfg, None)
+    replay = route or None
+    plain, plain_route = run(ops.plain_versions, params, mcfg, replay)
+    f32 = mcfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = TransformerLM(f32, tree_map(lambda t: t.detach().float(),
+                                      params.tree()))
+    kernel32, route32 = run(contextlib.nullcontext, p32, f32, replay)
+    plain32, plain_route32 = run(ops.plain_versions, p32, f32, replay)
+    del p32
+    check(all(bool(torch.isfinite(t).all())
+              for r in (kernel, plain, kernel32, plain32) for t in r),
+          f"{mcfg.name}: non-finite logits")
+    maxerr = lambda a, b: [float((x - y).abs().max()) for x, y in zip(a, b)]
+    rms = lambda a, b: [float((x - y).pow(2).mean().sqrt())
+                        for x, y in zip(a, b)]
+    scale32 = max(float(t.abs().max()) for t in plain32)
+    err32 = maxerr(kernel32, plain32)
+    check(max(err32) <= FAMILY_F32_TOL * scale32,
+          f"{mcfg.name}: float32 kernels vs plain max abs err {err32} above "
+          f"{FAMILY_F32_TOL} x {scale32}")
+    rms_kernel, rms_plain = rms(kernel, plain32), rms(plain, plain32)
+    ratio = max(a / b for a, b in zip(rms_kernel, rms_plain))
+    check(ratio <= FAMILY_BF16_RMS_RATIO,
+          f"{mcfg.name}: the bf16 kernel run is {ratio:.3f}x as far from "
+          f"float32 as the plain bf16 run (RMS {rms_kernel} vs {rms_plain})")
+    scale = max(float(t.abs().max()) for t in plain)
+    err = maxerr(kernel, plain)
+    if mcfg.family == "moe":
+        check(max(err) <= LOGITS_TOL * scale,
+              f"{mcfg.name}: kernels vs plain logits max abs err {err} above "
+              f"{LOGITS_TOL} x {scale}")
+    routing = None
+    if route:
+        routing = {"bfloat16": routing_partings(torch, route, plain_route),
+                   "float32": routing_partings(torch, route32, plain_route32)}
+        check(all(r["tokens_unexcused"] == 0 for r in routing.values()),
+              f"{mcfg.name}: the plain run's routing parts from the kernel "
+              f"run's beyond rounding: {routing}")
+    return {"rows": B, "prompt_len": P, "decode_steps": 2,
+            "float32_max_abs_err": err32, "float32_max_abs_logit": scale32,
+            "bfloat16_max_abs_err": err, "bfloat16_max_abs_logit": scale,
+            "bfloat16_rms_from_float32": {"kernels": rms_kernel,
+                                          "plain": rms_plain,
+                                          "max_ratio": ratio},
+            "tolerance": {
+                "float32": f"{FAMILY_F32_TOL} x max |logit|",
+                "bfloat16": f"RMS from float32 <= {FAMILY_BF16_RMS_RATIO} x "
+                            "the plain bf16 run's; MoE models also "
+                            f"{LOGITS_TOL} x max |logit|"},
+            "moe_routing": routing}
+
+
+def family_timings(torch, params, mcfg):
+    """Prefill ms of one LM_FAMILY_CHECK_LEN-token prompt, ms per decode
+    step of len(LM_FAMILY_LENS) rows (host clock, device synchronised), and
+    one profiled decode step's CUDA kernels, device ms and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    B, P = len(LM_FAMILY_LENS), LM_FAMILY_CHECK_LEN
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(1, mcfg.vocab, (B, P), generator=g, device="cuda",
+                         dtype=torch.int32)
+    steps = 8
+    prefill = lambda: api.prefill(params, mcfg, {"tokens": toks[:1]}, P)
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    _, cache = api.prefill(params, mcfg, {"tokens": toks}, P + steps + 2)
+    tok = toks[:, -1:]
+    api.decode(params, mcfg, tok, P, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        api.decode(params, mcfg, tok, P + t, cache)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        api.decode(params, mcfg, tok, P + steps, cache)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, device_ms = cuda_activity(prof)
+    check(device_ms, f"{mcfg.name}: torch.profiler saw no CUDA kernel in a "
+                     "decode step")
+    return {"prefill_ms": prefill_ms, "prefill_tokens": P,
+            "decode_step_ms": decode_ms, "decode_rows": B,
+            "profiled_decode_step": {
+                "cuda_kernels": kernels, "device_ms": device_ms,
+                "wall_ms": wall_ms,
+                "device_idle_share": 1 - device_ms / wall_ms}}
+
+
+def family_serving(torch, params, mcfg):
+    """The family's main path: LM_FAMILY_LENS requests, greedy, no eos,
+    through SlotEngine and then TPFIFOEngine (each's launches counted from
+    zero), then each engine again: the same tokens."""
+    from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.tpfifo import TPFIFOEngine
+    kw = dict(n_slots=len(LM_FAMILY_LENS), max_len=LM_FAMILY_MAX_LEN,
+              eos_id=-1, device="cuda")
+    engines = {"lockstep": lambda: SlotEngine(params, mcfg, **kw),
+               "tpfifo": lambda: TPFIFOEngine(params, mcfg,
+                                              grain=LM_FAMILY_GRAIN, **kw)}
+    out, launches, bodies = {}, {}, {}
+    for name, make in engines.items():
+        eng = make()
+        counters = zero_lm_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in family_requests(mcfg.vocab):
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name], bodies[name] = read_lm_counters(counters)
+        got = {r.rid: list(r.out) for r in eng.finished}
+        check(len(got) == len(LM_FAMILY_LENS)
+              and all(len(o) == LM_FAMILY_MAX_NEW for o in got.values())
+              and all(0 <= t < mcfg.vocab for o in got.values() for t in o),
+              f"{mcfg.name} {name}: served {got}")
+        again = make()
+        for r in family_requests(mcfg.vocab):
+            again.submit(r)
+        again.run()
+        check({r.rid: list(r.out) for r in again.finished} == got,
+              f"{mcfg.name} {name}: tokens differ run to run")
+        out[name] = {**served_stats(eng, wall), "tokens_out": got,
+                     "launches": launches[name]}
+    return out, add_counts(*launches.values()), add_counts(*bodies.values())
+
+
+def family_mcts(torch, params, mcfg):
+    """One search-guided token on the model (MCTSSlotEngine, one slot):
+    W = 64 lanes, LM_FAMILY_MCTS_PLAYOUTS playouts, branch 8, depth 6,
+    rollout 8; counted from zero; run twice, the same token."""
+    from repro_torch.serve.engine import MCTSSlotEngine, Request
+    from repro_torch.serve.mcts_decode import MCTSDecodeConfig
+    dcfg = MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts":
+                               LM_FAMILY_MCTS_PLAYOUTS})
+    req = family_requests(mcfg.vocab)[-1]
+
+    def run():
+        eng = MCTSSlotEngine(params, mcfg, dcfg, n_slots=1,
+                             max_prompt_len=len(req.prompt) + 1, eos_id=-1,
+                             device="cuda")
+        eng.submit(Request(rid=0, prompt=req.prompt, max_new=1))
+        eng.run()
+        return eng
+
+    counters = zero_lm_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bodies = read_lm_counters(counters)
+    tok = eng.finished[0].out
+    check(len(tok) == 1 and 0 <= tok[0] < mcfg.vocab,
+          f"{mcfg.name} MCTS: committed {tok}")
+    check(run().finished[0].out == tok,
+          f"{mcfg.name} MCTS: the token differs run to run")
+    st = eng.search_stats[0]
+    return ({"token": tok[0], "seconds": wall, "tokens_per_s": 1 / wall,
+             "prompt_len": len(req.prompt), "playouts": st["playouts"],
+             "tree_nodes": st["tree_nodes"], "launches": launches,
+             **{k: getattr(dcfg, k) for k in (
+                 "n_workers", "n_tasks", "branch", "max_depth",
+                 "rollout_len")}},
+            launches, bodies)
+
+
+def phase_lm_families(torch):
+    """The MoE, MLA, zamba2 hybrid and xLSTM models at their published
+    widths (LM_FAMILIES; bf16, seed-0 random weights), one at a time, each
+    freed before the next (``lm_kernels`` holds and times the kernels at
+    their shapes): per model its parameters and memory, its prefill and
+    decode logits with the kernels against the plain
+    versions, prefill ms, ms per decode step and a profiled decode step,
+    and its main path: LM_FAMILY_LENS requests of LM_FAMILY_MAX_NEW greedy
+    tokens through ``SlotEngine`` and ``TPFIFOEngine`` (run twice, the same
+    tokens); on xlstm-1.3b one search-guided token through
+    ``MCTSSlotEngine``. Checks each kernel's launches on the path: flash
+    (tensor-core body) on qwen3-moe's and zamba2's SlotEngine prefills,
+    none on deepseek-v2 (MLA runs sdpa: its v head dim is not q's) or
+    xlstm; rmsnorm on every model; uct_select on the xLSTM search."""
+    import gc
+    t_phase = time.perf_counter()
+    models, launches, bodies = {}, {}, {}
+    for arch in LM_FAMILIES:
+        t_model = time.perf_counter()
+        mcfg, params, info = family_model(torch, arch)
+        info["logits_vs_plain"] = family_logits_vs_plain(torch, params, mcfg)
+        info.update(family_timings(torch, params, mcfg))
+        torch.cuda.reset_peak_memory_stats()
+        info["serving"], ln, bd = family_serving(torch, params, mcfg)
+        if arch == LM_FAMILY_MCTS_ARCH:
+            info["mcts"], ln2, bd2 = family_mcts(torch, params, mcfg)
+            check(ln2["uct_select"] > 0, f"{arch}: uct_select never launched")
+            ln, bd = add_counts(ln, ln2), add_counts(bd, bd2)
+        info["peak_memory_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        check(ln["rmsnorm"] > 0, f"{arch}: rmsnorm never launched")
+        flash_body = {"qwen3-moe-235b-a22b": "tensor_cores",
+                      "zamba2-7b": "tensor_cores"}.get(arch)
+        if flash_body:
+            check(bd[flash_body] > 0 and bd[flash_body] == ln["flash_attention"],
+                  f"{arch}: flash launches {bd}, expected the {flash_body} "
+                  "body")
+        else:
+            check(ln["flash_attention"] == 0,
+                  f"{arch}: flash launched {ln['flash_attention']} times")
+        info["launches"], info["launches_by_body"] = ln, bd
+        info["config"] = {"arch": arch, **LM_FAMILIES[arch],
+                          "layers": mcfg.n_layers, "d_model": mcfg.d_model}
+        info["model_seconds"] = time.perf_counter() - t_model
+        models[arch] = info
+        launches, bodies = add_counts(launches, ln), add_counts(bodies, bd)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("lm_families",
+         config={"requests_prompt_lens": list(LM_FAMILY_LENS),
+                 "max_new": LM_FAMILY_MAX_NEW, "max_len": LM_FAMILY_MAX_LEN,
+                 "tpfifo_grain": LM_FAMILY_GRAIN, "greedy": True,
+                 "eos_id": -1, "mcts_arch": LM_FAMILY_MCTS_ARCH,
+                 "mcts_playouts": LM_FAMILY_MCTS_PLAYOUTS},
+         models=models, launches=launches, launches_by_body=bodies,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches, bodies
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
@@ -3305,8 +3788,10 @@ def main(argv=None) -> int:
     batch_launches, batch_bodies = phase_lm_batch(torch, model)
     lm_serve_launches, serve_bodies = phase_lm_serve(torch, model)
     mcts_serve_launches, mcts_bodies = phase_lm_mcts_serve(torch, model)
+    del model
+    families_launches, families_bodies = phase_lm_families(torch)
     flash_by_body = add_counts(flash_by_body, batch_bodies, serve_bodies,
-                               mcts_bodies)
+                               mcts_bodies, families_bodies)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
@@ -3324,7 +3809,8 @@ def main(argv=None) -> int:
                    "lm_search": lm_launches.get(r["name"], 0),
                    "lm_batch": batch_launches.get(r["name"], 0),
                    "lm_serve": lm_serve_launches.get(r["name"], 0),
-                   "lm_mcts_serve": mcts_serve_launches.get(r["name"], 0)}
+                   "lm_mcts_serve": mcts_serve_launches.get(r["name"], 0),
+                   "lm_families": families_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():

@@ -1,25 +1,31 @@
 """Architecture registry: ``get_config(id)`` -> ModelConfig (+ reduced twins).
 
-Port of ``repro.configs`` for the dense GQA transformers, the family this
-slice of the port runs. The other architectures of the JAX package's
-registry are known by name and refused with ``NotImplementedError`` (their
-families are ROADMAP.md item A12).
+Port of ``repro.configs`` for the decoder-only architectures: the dense GQA
+transformers, the MoE models (Qwen3-MoE; DeepSeek-V2 with MLA), the zamba2
+hybrid and xLSTM. The vlm and encoder-decoder architectures of the JAX
+package's registry are known by name and refused with
+``NotImplementedError`` (ROADMAP.md item A12c).
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import llama3_8b, qwen15_05b, qwen15_4b, smollm_135m
+from repro_torch.configs import (deepseek_v2_236b, llama3_8b, qwen3_moe_235b,
+                                 qwen15_05b, qwen15_4b, smollm_135m,
+                                 xlstm_1p3b, zamba2_7b)
 from repro_torch.models.common import ModelConfig
 
 _REGISTRY: dict[str, ModelConfig] = {
+    "zamba2-7b": zamba2_7b.CONFIG,
     "llama3-8b": llama3_8b.CONFIG,
     "smollm-135m": smollm_135m.CONFIG,
     "qwen1.5-0.5b": qwen15_05b.CONFIG,
     "qwen1.5-4b": qwen15_4b.CONFIG,
+    "deepseek-v2-236b": deepseek_v2_236b.CONFIG,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
+    "xlstm-1.3b": xlstm_1p3b.CONFIG,
 }
-# in the JAX package's registry, not ported yet
-_NOT_PORTED = ("zamba2-7b", "deepseek-v2-236b", "qwen3-moe-235b-a22b",
-               "xlstm-1.3b", "paligemma-3b", "seamless-m4t-medium")
+# in the JAX package's registry, not ported yet (the vlm and encdec families)
+_NOT_PORTED = ("paligemma-3b", "seamless-m4t-medium")
 
 ARCHS: tuple[str, ...] = tuple(_REGISTRY)
 
@@ -27,8 +33,8 @@ ARCHS: tuple[str, ...] = tuple(_REGISTRY)
 def get_config(name: str) -> ModelConfig:
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {name!r}: its family is not ported yet (ROADMAP.md item "
-            "A12); the port runs the dense GQA transformers "
+            f"arch {name!r}: its family (vlm or encdec) is not ported yet "
+            "(ROADMAP.md item A12c); the port runs "
             f"{sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
@@ -36,10 +42,11 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced_config(name: str) -> ModelConfig:
-    """Family-faithful small twin: same block structure, CPU-sized dims
-    (the JAX package's ``reduced_config`` for the dense family)."""
+    """Family-faithful small twin: same block structure, CPU-sized dims (the
+    JAX package's ``reduced_config``: few layers, narrow width, tiny vocab,
+    few experts)."""
     full = get_config(name)
-    return full.replace(
+    kw: dict = dict(
         name=full.name + "-reduced",
         d_model=128,
         n_heads=4,
@@ -53,5 +60,25 @@ def reduced_config(name: str) -> ModelConfig:
         logits_chunk=0,
         attn_chunk=0,
         remat="none",
-        n_layers=2,
     )
+    fam = full.family
+    if fam == "moe":
+        # capacity 8.0: reduced twins are drop-free (the drop set depends on
+        # the token count, so prefill and decode would legitimately differ)
+        kw.update(n_layers=3 if full.n_dense_layers else 2, n_experts=8,
+                  n_experts_per_tok=min(2, full.n_experts_per_tok),
+                  moe_d_ff=64, capacity_factor=8.0,
+                  n_dense_layers=min(1, full.n_dense_layers))
+        if full.use_mla:
+            kw.update(q_lora_rank=48, kv_lora_rank=32, qk_nope_head_dim=32,
+                      qk_rope_head_dim=16, v_head_dim=32, d_ff=256)
+    elif fam == "hybrid":
+        kw.update(n_layers=2 * full.attn_every + 1, attn_every=full.attn_every,
+                  ssm_state=16, ssm_headdim=16, ssm_chunk=16, d_ff=256)
+    elif fam == "ssm":
+        kw.update(n_layers=3, ssm_state=16, ssm_headdim=16, ssm_chunk=16)
+    elif fam == "xlstm":
+        kw.update(n_layers=2 * full.slstm_every, d_ff=0)
+    else:
+        kw.update(n_layers=2)
+    return full.replace(**kw)

@@ -18,7 +18,7 @@
 // so bytes bound it (~7.5 us at 3.35 TB/s). Two bodies, chosen by the
 // wrapper from the dtype and head dim alone (flash_attention.body_for):
 //
-// * flash_tc_kernel, bf16, d in {32, 64, 80, 96, 128} (one instance each):
+// * flash_tc_kernel, bf16, d in {32, 64, 80, 96, 112, 128} (one instance each):
 //   FlashAttention-2's structure on the tensor cores. One CTA per (batch *
 //   head, 64 query rows), the late (causally heavy) query blocks first in
 //   the grid; four warps, each owning 16 query rows. cp.async copies 16
@@ -589,6 +589,9 @@ extern "C" int repro_flash_attention_tc_blocks_per_sm(int D) {
     case 96:
       err = tc::blocks_per_sm<96>(&n);
       break;
+    case 112:
+      err = tc::blocks_per_sm<112>(&n);
+      break;
     case 128:
       err = tc::blocks_per_sm<128>(&n);
       break;
@@ -608,13 +611,15 @@ extern "C" int repro_flash_attention_tc_smem_bytes(int D) {
       return static_cast<int>(tc::smem_bytes<80>());
     case 96:
       return static_cast<int>(tc::smem_bytes<96>());
+    case 112:
+      return static_cast<int>(tc::smem_bytes<112>());
     case 128:
       return static_cast<int>(tc::smem_bytes<128>());
   }
   return -1;
 }
 
-// The tensor-core body: bfloat16, head dim 32, 64, 80, 96 or 128, every
+// The tensor-core body: bfloat16, head dim 32, 64, 80, 96, 112 or 128, every
 // row of q, k, v and o starting on 16 bytes.
 extern "C" int repro_flash_attention_tc(const void* packed) {
   FlashArgs a;
@@ -643,6 +648,9 @@ extern "C" int repro_flash_attention_tc(const void* packed) {
     case 96:
       return tc::launch<96>(a.q, a.k, a.v, a.o, a.B, a.H, a.Hkv, a.S, a.scale,
                             a.causal, qs, ks, vs, os, stream);
+    case 112:
+      return tc::launch<112>(a.q, a.k, a.v, a.o, a.B, a.H, a.Hkv, a.S,
+                             a.scale, a.causal, qs, ks, vs, os, stream);
     case 128:
       return tc::launch<128>(a.q, a.k, a.v, a.o, a.B, a.H, a.Hkv, a.S,
                              a.scale, a.causal, qs, ks, vs, os, stream);

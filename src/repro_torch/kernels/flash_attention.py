@@ -39,7 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention as flash_attention_plain  # noqa: F401
 
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (32, 64, 80, 96, 128)   # csrc/flash_attention.cu: instances
+TC_HEAD_DIMS = (32, 64, 80, 96, 112, 128)   # csrc/flash_attention.cu: instances
 BODIES = ("tensor_cores", "cuda_cores")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _launch = {"tensor_cores": _build.Launcher("repro_flash_attention_tc"),

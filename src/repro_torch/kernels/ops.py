@@ -131,6 +131,13 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
     no copies."""
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"flash_attention: unknown layout {layout!r}")
+    if v.shape[-1] != q.shape[-1]:
+        # MLA: the reference's Pallas wrapper pads v by q's padding and
+        # fails on it; neither body takes a second head dim
+        raise ValueError(
+            f"flash_attention: v head dim {v.shape[-1]} differs from the q/k "
+            f"head dim {q.shape[-1]}; the kernel takes one head dim (MLA "
+            "runs with use_flash=False)")
     if q.is_cuda and not _force_plain:
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                    layout=layout)

@@ -1,16 +1,20 @@
-"""Family-dispatched model API (port of ``repro.models.api`` for the dense
-decoder):
+"""Family-dispatched model API (port of ``repro.models.api`` for the
+decoder-only families: dense, MoE with or without MLA, Mamba-2, the zamba2
+hybrid and xLSTM):
 
     specs(cfg)                              -> param Spec tree
-    cache_specs(cfg, batch, max_len)        -> {stage: {k|v: (shape, dtype, axes)}}
+    cache_specs(cfg, batch, max_len)        -> {stage: {...: (shape, dtype, axes)}}
     init_cache(cfg, batch, max_len, device) -> zeroed cache tree
     prefill(params, cfg, batch, max_len)    -> (logits, cache)
     decode(params, cfg, token, pos, cache)  -> (logits, cache)   (cache in place)
     init_params(cfg, seed, device)          -> TransformerLM
 
-The encoder-decoder family and the other non-dense families are not ported
-(ROADMAP.md item A12); they raise ``NotImplementedError``
-(``models.common.check_dense``).
+The cache trees nest as deep as the family's stages: ``{stage: {k, v}}``
+for attention, ``{stage: {"mamba": {state, conv}, "attn": {k, v}}}`` for a
+zamba2 segment, ``{stage: {"mlstm": {C, n, m, conv}, "slstm": {h, c, n, m,
+conv}}}`` for an xLSTM segment. The vlm and encoder-decoder families raise
+``NotImplementedError`` (``models.common.check_in_slice``; ROADMAP.md item
+A12c).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ModelConfig, init_tree, spec_with_dtype,
-                                       tree_leaves)
+                                       tree_leaves, tree_map)
 from repro_torch.models.common import n_params as _n_params
 
 
@@ -32,11 +36,10 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def cache_batch_axes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Each cache leaf's batch-axis index (leaves are layer-stacked, so it
-    is 1 for the dense cache)."""
-    return {stage: {name: axes.index("batch")
-                    for name, (_, _, axes) in leaves.items()}
-            for stage, leaves in cache_specs(cfg, batch, max_len).items()}
+    """The cache tree's shape, each leaf its batch-axis index (leaves are
+    layer-stacked: 1 for a stage's leaves, 2 for a segment's inner ones)."""
+    return tree_map(lambda t: t[2].index("batch"),
+                    cache_specs(cfg, batch, max_len))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -48,7 +51,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):
     if extra:
         raise NotImplementedError(
             f"prefill batch keys {sorted(extra)}: the vlm/encdec inputs are "
-            "not ported (ROADMAP.md item A12)")
+            "not ported (ROADMAP.md item A12c)")
     return tfm.lm_prefill(params, cfg, batch["tokens"], max_len)
 
 

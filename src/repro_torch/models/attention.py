@@ -1,6 +1,7 @@
-"""Attention, GQA half (port of ``repro.models.attention``): projections
-with optional bias, masks, the einsum ``sdpa``, the flash dispatch, and the
-KV-cache prefill/decode.
+"""Attention (port of ``repro.models.attention``): GQA projections with
+optional bias, masks, the einsum ``sdpa``, the flash dispatch, the KV-cache
+prefill/decode, and DeepSeek-V2's multi-head latent attention (MLA), whose
+cache holds the latent ``(c_kv, k_pe)``.
 
 ``run_attention`` sends prefill to ``kernels.ops.flash_attention`` (the
 flash kernel on the card) when ``cfg.use_flash`` is set, as the JAX package
@@ -10,8 +11,10 @@ where the reference does: q is scaled in q's dtype before the product,
 scores are float32, probabilities are cast back to q's dtype before the
 product with v.
 
-MLA, cross and prefix-LM attention and the q-chunked ``sdpa_chunked`` are
-not ported (ROADMAP.md item A12).
+MLA's v head dim differs from its q/k head dim, which the flash kernel does
+not take: with ``use_flash`` it raises (``kernels.ops.flash_attention``), as
+the reference's Pallas wrapper fails on it. Cross and prefix-LM attention
+and the q-chunked ``sdpa_chunked`` are not ported (ROADMAP.md item A12c).
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ModelConfig, Spec
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.common import ModelConfig, Spec, dense_spec, norm_spec
+from repro_torch.models.layers import apply_rope, rmsnorm
 
 NEG = -1e30
 
@@ -96,10 +99,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def run_attention(cfg: ModelConfig, q, k, v, scale: float | None = None):
     """Dispatch: the flash kernel when ``cfg.use_flash``, else ``sdpa``
     under a causal mask. (The JAX package's prefix-LM and q-chunked
-    branches are not ported: ROADMAP.md item A12.)"""
+    branches are not ported: ROADMAP.md item A12c.)"""
     if cfg.attn_chunk:
         raise NotImplementedError(
-            "attn_chunk > 0: sdpa_chunked is not ported (ROADMAP.md item A12)")
+            "attn_chunk > 0: sdpa_chunked is not ported (ROADMAP.md item A12c)")
     if cfg.use_flash:
         return ops.flash_attention(q, k, v, causal=True, scale=scale)
     return sdpa(q, k, v, causal_mask(q.shape[1], q.device), scale)
@@ -176,3 +179,95 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos):
     out = sdpa(q, k_cache.to(x.dtype), v_cache.to(x.dtype),
                valid[:, None, :])                                  # (B,1,Smax)
     return _out_proj(out, params["wo"]), (k_cache, v_cache)
+
+
+# ----------------------------------------------------------- MLA (DSv2) ----
+def mla_specs(cfg: ModelConfig) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense_spec(d, qr, ("embed", "lora")),
+        "q_norm": norm_spec(qr),
+        "wq_b": Spec((qr, H, dn + dr), ("lora", "heads", None), 1.0 / math.sqrt(qr)),
+        "wkv_a": dense_spec(d, kvr, ("embed", "lora")),
+        "kv_norm": norm_spec(kvr),
+        "wk_rope": dense_spec(d, dr, ("embed", None)),
+        "wkv_b": Spec((kvr, H, dn + dv), ("lora", "heads", None),
+                      1.0 / math.sqrt(kvr)),
+        "wo": Spec((H, dv, d), ("heads", None, "embed"), 1.0 / math.sqrt(H * dv)),
+    }
+
+
+def _mla_qkv(params, cfg: ModelConfig, x, pos, c_kv, k_pe):
+    """Shared MLA math given latent c_kv (B,S,kvr) and rope key k_pe
+    (B,S,dr): q (B,Sq,H,dn+dr), k (B,S,H,dn+dr), v (B,S,H,dv), scale."""
+    dt = x.dtype
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = rmsnorm(x @ params["wq_a"].to(dt), params["q_norm"], cfg.norm_eps)
+    q = _proj(cq, params["wq_b"])
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
+    kv = _proj(c_kv, params["wkv_b"])
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k_pe_h = k_pe[:, :, None, :].expand(*k_pe.shape[:2], H, dr)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat([k_nope, k_pe_h], dim=-1)
+    scale = 1.0 / math.sqrt(dn + dr)
+    return q_full, k_full, v, scale
+
+
+def _mla_latent(params, cfg: ModelConfig, x, pos):
+    """The cached latent of x: c_kv (B,S,kvr) normed, k_pe (B,S,dr) rotated."""
+    dt = x.dtype
+    c_kv = rmsnorm(x @ params["wkv_a"].to(dt), params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope((x @ params["wk_rope"].to(dt))[:, :, None, :],
+                      pos, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def mla_attention(params, cfg: ModelConfig, x: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    pos = _positions(x.shape[1], x.device)
+    c_kv, k_pe = _mla_latent(params, cfg, x, pos)
+    q, k, v, scale = _mla_qkv(params, cfg, x, pos, c_kv, k_pe)
+    if mask is None:
+        out = run_attention(cfg, q, k, v, scale=scale)
+    else:
+        out = sdpa(q, k, v, mask, scale)
+    return _out_proj(out, params["wo"])
+
+
+def mla_prefill(params, cfg: ModelConfig, x: torch.Tensor):
+    """Returns (attn_out, (c_kv, k_pe)): the cache is the LATENT, per token
+    kv_lora_rank + rope_dim values instead of 2·H·hd."""
+    pos = _positions(x.shape[1], x.device)
+    c_kv, k_pe = _mla_latent(params, cfg, x, pos)
+    q, k, v, scale = _mla_qkv(params, cfg, x, pos, c_kv, k_pe)
+    out = run_attention(cfg, q, k, v, scale=scale)
+    return _out_proj(out, params["wo"]), (c_kv, k_pe)
+
+
+def mla_decode(params, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos):
+    """One-token decode. x: (B,1,d); cache c_kv (B,Smax,kvr), k_pe
+    (B,Smax,dr), written IN PLACE at ``pos`` (a Python int or a (B,)
+    tensor); every cached latent is expanded to per-head K/V each step, as
+    in the reference."""
+    c_cache, pe_cache = cache
+    B = x.shape[0]
+    dt = x.dtype
+    if isinstance(pos, int):
+        pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    else:
+        pos_b = pos.reshape(-1, 1).to(torch.int32).expand(B, 1)
+    c_new, pe_new = _mla_latent(params, cfg, x, pos_b)
+    wpos = pos if isinstance(pos, int) else pos_b
+    update_cache_at(c_cache, c_new, wpos)
+    update_cache_at(pe_cache, pe_new, wpos)
+    q, k, v, scale = _mla_qkv(params, cfg, x, pos_b, c_cache.to(dt),
+                              pe_cache.to(dt))
+    Smax = c_cache.shape[1]
+    valid = torch.arange(Smax, device=x.device)[None, :] <= pos_b
+    out = sdpa(q, k, v, valid[:, None, :], scale)
+    return _out_proj(out, params["wo"]), (c_cache, pe_cache)

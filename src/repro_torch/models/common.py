@@ -1,5 +1,5 @@
 """Model configuration and parameter-tree machinery (port of
-``repro.models.common``, the parts the dense decoder needs).
+``repro.models.common``, the parts the decoder-only families need).
 
 Parameters are nested dicts of tensors, keyed as in the JAX package, with a
 parallel tree of ``Spec`` leaves (shape, logical axes, init scale). The
@@ -89,7 +89,7 @@ class ModelConfig:
     scan_layers: bool = True
     logits_chunk: int = 0
     use_flash: bool = False        # the flash-attention kernel in prefill
-    attn_chunk: int = 0            # q-chunked sdpa: not ported (A12)
+    attn_chunk: int = 0            # q-chunked sdpa: not ported (A12c)
     mlstm_chunk: int = 1024
     unroll_loops: bool = False
 
@@ -109,17 +109,17 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Refuse what this slice of the port does not run."""
-    if cfg.family not in ("dense",) or cfg.use_mla or cfg.n_experts:
+def check_in_slice(cfg: ModelConfig) -> None:
+    """Refuse what the port does not run yet: the vlm and encdec families
+    and the q-chunked ``sdpa_chunked`` (``attn_chunk``)."""
+    if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(
-            f"family {cfg.family!r} (MLA={cfg.use_mla}, experts="
-            f"{cfg.n_experts}): only the dense GQA transformer is ported "
-            "(ROADMAP.md item A12)")
+            f"family {cfg.family!r}: the vlm and encdec families are not "
+            "ported (ROADMAP.md item A12c)")
     if cfg.attn_chunk:
         raise NotImplementedError(
             "attn_chunk > 0: the q-chunked sdpa is not ported "
-            "(ROADMAP.md item A12)")
+            "(ROADMAP.md item A12c)")
 
 
 # ------------------------------------------------------------ param trees ----
@@ -161,6 +161,27 @@ def tree_set(tree: dict, path: str, value) -> None:
 def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def store_layer(buf: dict | None, i: int, n: int, tree: dict) -> dict:
+    """Copy layer i's tree of tensors into ``buf``, the stack of n such
+    trees along a new leading axis (made from the first one to arrive when
+    ``buf`` is None), and return ``buf``: the layer-stacked caches of the
+    JAX package's scans, without holding every layer's tree twice."""
+    if buf is None:
+        buf = tree_map(lambda t: t.new_empty((n, *t.shape)), tree)
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            store_layer(buf[k], i, n, v)
+        else:
+            buf[k][i].copy_(v)
+    return buf
+
+
+def unstack(tree: dict, n: int) -> list[dict]:
+    """The inverse view: n trees, the i-th indexing every leaf at i (views,
+    no copies)."""
+    return [tree_map(lambda t, i=i: t[i], tree) for i in range(n)]
 
 
 def n_params(spec_tree) -> int:

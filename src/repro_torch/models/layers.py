@@ -21,8 +21,8 @@ from repro_torch.models.common import ModelConfig, Spec, activation, dense_spec
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """The model's norm: ``(x32 * rsqrt(mean(x32^2) + eps)).astype(dt) *
     w.astype(dt)``. On the card this is the rmsnorm kernel (its ``"model"``
-    order); on the CPU its plain version."""
-    return ops.rmsnorm(x, w, eps=eps, order="model")
+    order), which takes a contiguous x; on the CPU its plain version."""
+    return ops.rmsnorm(x.contiguous(), w, eps=eps, order="model")
 
 
 # -------------------------------------------------------------------- rope ----

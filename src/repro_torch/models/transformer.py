@@ -1,13 +1,17 @@
-"""Decoder-only LM, dense stage (port of ``repro.models.transformer`` for the
-dense family): layer plan, block forward / prefill / decode, and the
-explicit cache trees.
+"""Decoder-only LM (port of ``repro.models.transformer``): layer plan,
+blocks (dense / MoE / MLA attention, Mamba-2, mLSTM, the xLSTM and zamba2
+segments), their forward / prefill / decode, and the explicit cache trees.
 
 As in the JAX package, a model is a list of stages, each ``count`` copies of
-one block with its parameters stacked along a leading ``layers`` axis; the
-JAX package scans a stage, the port runs a Python loop over the layer index.
-The KV cache is ``{"stage_i": {"k": (L, B, Smax, Hkv, hd), "v": ...}}``;
-where the JAX package returns a new cache from every decode step, the port
-writes the step's K/V into the cache it is given (in place) and returns it.
+one block kind with its parameters stacked along a leading ``layers`` axis;
+the heterogeneous families (zamba2, xLSTM) are composite segment kinds whose
+inner layers are stacked once more. The JAX package scans a stage; the port
+runs a Python loop over per-layer views of the stacked tensors
+(``_stage_views``). The cache tree mirrors the stages (``{"stage_i":
+{leaf: (L, [inner,] B, ...)}}``, attention K/V with ``kv_len`` after the
+batch axis); where the JAX package returns a new cache from every decode
+step, the port writes the step's K/V and recurrent states into the cache it
+is given (in place) and returns it.
 
 ``TransformerLM`` wraps the parameter tree in an ``nn.Module`` whose
 ``state_dict`` keys are the JAX tree paths joined by ``.`` (for example
@@ -22,17 +26,44 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (ModelConfig, check_dense, norm_spec,
-                                       tree_leaves, tree_map, tree_set)
+from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.common import (ModelConfig, check_in_slice, norm_spec,
+                                       store_layer, tree_leaves, tree_map,
+                                       tree_set, unstack)
 from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
                                        rmsnorm, unembed)
 
 
 # ------------------------------------------------------------- layer plan ----
 def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
-    """[(kind, count)] stages; the dense family is one stage."""
-    check_dense(cfg)
-    return [("dense", cfg.n_layers)]
+    """[(kind, count)] stages; each stage is one homogeneous stack."""
+    check_in_slice(cfg)
+    fam = cfg.family
+    if fam == "dense":
+        return [("dense", cfg.n_layers)]
+    if fam == "moe":
+        plan = []
+        if cfg.n_dense_layers:
+            plan.append(("dense", cfg.n_dense_layers))
+        plan.append(("moe", cfg.n_layers - cfg.n_dense_layers))
+        return plan
+    if fam == "ssm":
+        return [("mamba", cfg.n_layers)]
+    if fam in ("xlstm", "hybrid"):
+        seg_kind, k, rest = (("xlstm_seg", cfg.slstm_every, "mlstm")
+                             if fam == "xlstm"
+                             else ("zamba_seg", cfg.attn_every, "mamba"))
+        segs, rem = divmod(cfg.n_layers, k)
+        plan = []
+        if segs:
+            plan.append((seg_kind, segs))
+        if rem:
+            plan.append((rest, rem))
+        return plan
+    raise ValueError(f"unknown family {fam}")
 
 
 def _stack_specs(tree, n: int):
@@ -41,21 +72,43 @@ def _stack_specs(tree, n: int):
                                       axes=("layers", *s.axes)), tree)
 
 
-# ------------------------------------------------------------ block: dense ----
-def dense_block_specs(cfg: ModelConfig) -> dict:
+def _stack_cache_specs(tree, n: int):
+    """Cache specs are (shape, dtype, axes) leaves."""
+    return tree_map(lambda t: ((n, *t[0]), t[1], ("layers", *t[2])), tree)
+
+
+def _ffn(p, cfg: ModelConfig, h):
+    return moe_mod.moe_ffn(p["moe"], cfg, h) if "moe" in p else mlp(p["mlp"], cfg, h)
+
+
+# ------------------------------------------------------ block: dense / moe ----
+def dense_block_specs(cfg: ModelConfig, use_moe: bool = False) -> dict:
     d = cfg.d_model
-    return {"ln1": norm_spec(d), "ln2": norm_spec(d),
-            "attn": attn.gqa_specs(cfg), "mlp": mlp_specs(cfg)}
+    s = {"ln1": norm_spec(d), "ln2": norm_spec(d)}
+    s["attn"] = attn.mla_specs(cfg) if cfg.use_mla else attn.gqa_specs(cfg)
+    if use_moe:
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
+    return s
 
 
 def dense_block_fwd(p, cfg: ModelConfig, x):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_attention(p["attn"], cfg, h)
+    if cfg.use_mla:
+        x = x + attn.mla_attention(p["attn"], cfg, h)
+    else:
+        x = x + attn.gqa_attention(p["attn"], cfg, h)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], cfg, h)
+    return x + _ffn(p, cfg, h)
 
 
 def dense_block_cache_specs(cfg: ModelConfig, batch: int, max_len: int, dtype):
+    if cfg.use_mla:
+        return {"c_kv": ((batch, max_len, cfg.kv_lora_rank), dtype,
+                         ("batch", "kv_len", None)),
+                "k_pe": ((batch, max_len, cfg.qk_rope_head_dim), dtype,
+                         ("batch", "kv_len", None))}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     axes = ("batch", "kv_len", "kv_heads", None)
     return {"k": (shape, dtype, axes), "v": (shape, dtype, axes)}
@@ -73,48 +126,159 @@ def _pad_len(x: torch.Tensor, max_len: int) -> torch.Tensor:
 
 def dense_block_prefill(p, cfg: ModelConfig, x, max_len: int):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, (k, v) = attn.gqa_prefill(p["attn"], cfg, h)
-    cache = {"k": _pad_len(k, max_len), "v": _pad_len(v, max_len)}
+    if cfg.use_mla:
+        a, (c_kv, k_pe) = attn.mla_prefill(p["attn"], cfg, h)
+        cache = {"c_kv": _pad_len(c_kv, max_len),
+                 "k_pe": _pad_len(k_pe, max_len)}
+    else:
+        a, (k, v) = attn.gqa_prefill(p["attn"], cfg, h)
+        cache = {"k": _pad_len(k, max_len), "v": _pad_len(v, max_len)}
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], cfg, h), cache
+    return x + _ffn(p, cfg, h), cache
 
 
 def dense_block_decode(p, cfg: ModelConfig, x, cache, pos):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, _ = attn.gqa_decode(p["attn"], cfg, h, (cache["k"], cache["v"]), pos)
+    if cfg.use_mla:
+        a, _ = attn.mla_decode(p["attn"], cfg, h,
+                               (cache["c_kv"], cache["k_pe"]), pos)
+    else:
+        a, _ = attn.gqa_decode(p["attn"], cfg, h, (cache["k"], cache["v"]), pos)
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], cfg, h), cache
+    return x + _ffn(p, cfg, h), cache
+
+
+# ------------------------------------------------------------ block: mamba ----
+def mamba_block_specs(cfg: ModelConfig) -> dict:
+    return {"ln": norm_spec(cfg.d_model), "ssm": ssm_mod.mamba2_specs(cfg)}
+
+
+def mamba_block_fwd(p, cfg, x):
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    return x + ssm_mod.mamba2_forward(p["ssm"], cfg, h)
+
+
+def mamba_block_cache_specs(cfg, batch, max_len, dtype):
+    return ssm_mod.mamba2_cache_specs(cfg, batch, dtype)
+
+
+def mamba_block_prefill(p, cfg, x, max_len):
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    y, cache = ssm_mod.mamba2_forward(p["ssm"], cfg, h, return_cache=True)
+    return x + y, cache
+
+
+def mamba_block_decode(p, cfg, x, cache, pos):
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    y, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
+    return x + y, cache
+
+
+# ------------------------------------------------------------ block: mlstm ----
+def mlstm_block_fwd(p, cfg, x):
+    return x + xlstm_mod.mlstm_forward(p, cfg, x)
+
+
+def mlstm_block_prefill(p, cfg, x, max_len):
+    y, cache = xlstm_mod.mlstm_prefill(p, cfg, x)
+    return x + y, cache
+
+
+def mlstm_block_decode(p, cfg, x, cache, pos):
+    y, cache = xlstm_mod.mlstm_decode(p, cfg, x, cache)
+    return x + y, cache
+
+
+# -------------------------------------------------------- block: xlstm_seg ----
+def xlstm_seg_specs(cfg: ModelConfig) -> dict:
+    return {"mlstm": _stack_specs(xlstm_mod.mlstm_specs(cfg),
+                                  cfg.slstm_every - 1),
+            "slstm": xlstm_mod.slstm_specs(cfg)}
+
+
+def xlstm_seg_fwd(p, cfg, x):
+    for lp in p["mlstm"]:
+        x = mlstm_block_fwd(lp, cfg, x)
+    return x + xlstm_mod.slstm_forward(p["slstm"], cfg, x)
+
+
+def xlstm_seg_cache_specs(cfg, batch, max_len, dtype):
+    return {"mlstm": _stack_cache_specs(
+        xlstm_mod.mlstm_cache_specs(cfg, batch, dtype), cfg.slstm_every - 1),
+        "slstm": xlstm_mod.slstm_cache_specs(cfg, batch, dtype)}
+
+
+def xlstm_seg_prefill(p, cfg, x, max_len):
+    m_caches = None
+    for j, lp in enumerate(p["mlstm"]):
+        x, c = mlstm_block_prefill(lp, cfg, x, max_len)
+        m_caches = store_layer(m_caches, j, len(p["mlstm"]), c)
+    y, s_cache = xlstm_mod.slstm_prefill(p["slstm"], cfg, x)
+    return x + y, {"mlstm": m_caches, "slstm": s_cache}
+
+
+def xlstm_seg_decode(p, cfg, x, cache, pos):
+    for j, lp in enumerate(p["mlstm"]):
+        lc = tree_map(lambda t, j=j: t[j], cache["mlstm"])
+        x, _ = mlstm_block_decode(lp, cfg, x, lc, pos)
+    y, _ = xlstm_mod.slstm_decode(p["slstm"], cfg, x, cache["slstm"])
+    return x + y, cache
+
+
+# ----------------------------------------------------------------- registry ----
+_BLOCKS: dict[str, dict] = {
+    "dense": dict(specs=lambda cfg: dense_block_specs(cfg, use_moe=False),
+                  fwd=dense_block_fwd, cache=dense_block_cache_specs,
+                  prefill=dense_block_prefill, decode=dense_block_decode),
+    "moe": dict(specs=lambda cfg: dense_block_specs(cfg, use_moe=True),
+                fwd=dense_block_fwd, cache=dense_block_cache_specs,
+                prefill=dense_block_prefill, decode=dense_block_decode),
+    "mamba": dict(specs=mamba_block_specs, fwd=mamba_block_fwd,
+                  cache=mamba_block_cache_specs, prefill=mamba_block_prefill,
+                  decode=mamba_block_decode),
+    "mlstm": dict(specs=xlstm_mod.mlstm_specs, fwd=mlstm_block_fwd,
+                  cache=lambda cfg, b, m, dt: xlstm_mod.mlstm_cache_specs(cfg, b, dt),
+                  prefill=mlstm_block_prefill, decode=mlstm_block_decode),
+    "xlstm_seg": dict(specs=xlstm_seg_specs, fwd=xlstm_seg_fwd,
+                      cache=xlstm_seg_cache_specs, prefill=xlstm_seg_prefill,
+                      decode=xlstm_seg_decode),
+    # the shared blocks' params are passed in: see _run_stage and friends
+    "zamba_seg": dict(specs=hybrid_mod.zamba_seg_specs, fwd=None,
+                      cache=hybrid_mod.zamba_seg_cache_specs,
+                      prefill=None, decode=None),
+}
 
 
 # ------------------------------------------------------------------- specs ----
 def lm_specs(cfg: ModelConfig) -> dict:
     p: dict = {"embed": embed_specs(cfg), "final_norm": norm_spec(cfg.d_model)}
     for i, (kind, count) in enumerate(layer_plan(cfg)):
-        p[f"stage_{i}"] = _stack_specs(dense_block_specs(cfg), count)
+        p[f"stage_{i}"] = _stack_specs(_BLOCKS[kind]["specs"](cfg), count)
+    if cfg.family == "hybrid":
+        p["shared"] = _stack_specs(dense_block_specs(cfg), cfg.n_shared_blocks)
     return p
 
 
 def lm_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                    dtype=None) -> dict:
-    """{"stage_i": {"k"/"v": (shape, dtype, logical axes)}}, layer-stacked."""
+    """{"stage_i": {leaf or segment: ...}} of (shape, dtype, logical axes)
+    leaves, layer-stacked."""
     dtype = dtype or cfg.cdtype
-    c: dict = {}
-    for i, (kind, count) in enumerate(layer_plan(cfg)):
-        block = dense_block_cache_specs(cfg, batch, max_len, dtype)
-        c[f"stage_{i}"] = {name: ((count, *shape), dt, ("layers", *axes))
-                           for name, (shape, dt, axes) in block.items()}
-    return c
+    return {f"stage_{i}": _stack_cache_specs(
+        _BLOCKS[kind]["cache"](cfg, batch, max_len, dtype), count)
+        for i, (kind, count) in enumerate(layer_plan(cfg))}
 
 
 def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                   device=None) -> dict:
+    """A zeroed cache. Zero is a valid start everywhere: the mLSTM/sLSTM
+    stabilizer m only weights the (zero) C/n contributions, so m = 0 is
+    equivalent to -inf."""
     device = torch.device("cuda") if device is None else torch.device(device)
-    specs = lm_cache_specs(cfg, batch, max_len, dtype)
-    return {stage: {name: torch.zeros(shape, dtype=dt, device=device)
-                    for name, (shape, dt, _) in leaves.items()}
-            for stage, leaves in specs.items()}
+    return tree_map(lambda t: torch.zeros(t[0], dtype=t[1], device=device),
+                    lm_cache_specs(cfg, batch, max_len, dtype))
 
 
 # ------------------------------------------------------------------ module ----
@@ -148,44 +312,75 @@ def as_tree(params) -> dict:
     return params.tree() if isinstance(params, TransformerLM) else params
 
 
-def _layer_views(tree: dict, cfg: ModelConfig) -> list[list[dict]]:
-    """Per stage, per layer: the layer's parameters as views into the
-    stacked tensors."""
-    return [[tree_map(lambda t, i=i: t[i], tree[f"stage_{s}"])
-             for i in range(count)]
-            for s, (_, count) in enumerate(layer_plan(cfg))]
+def _stage_views(kind: str, tree: dict, count: int, cfg: ModelConfig) -> list:
+    """A stage's per-layer parameter views; a segment's inner stacks are
+    per-layer lists too."""
+    layers = unstack(tree, count)
+    if kind == "xlstm_seg":
+        return [{"mlstm": unstack(lp["mlstm"], cfg.slstm_every - 1),
+                 "slstm": lp["slstm"]} for lp in layers]
+    if kind == "zamba_seg":
+        return [{"mamba": unstack(lp["mamba"], cfg.attn_every)}
+                for lp in layers]
+    return layers
 
 
-def _layers(params, cfg: ModelConfig) -> list[list[dict]]:
+def _layer_views(tree: dict, cfg: ModelConfig) -> tuple[list, list | None]:
+    """(per stage, per layer: the layer's parameters as views into the
+    stacked tensors; the hybrid family's shared blocks as views, or None)."""
+    stages = [_stage_views(kind, tree[f"stage_{s}"], count, cfg)
+              for s, (kind, count) in enumerate(layer_plan(cfg))]
+    shared = (unstack(tree["shared"], cfg.n_shared_blocks)
+              if "shared" in tree else None)
+    return stages, shared
+
+
+def _layers(params, cfg: ModelConfig) -> tuple[list, list | None]:
     if isinstance(params, TransformerLM) and params.cfg == cfg:
         return params._layers   # built once: no per-step view bookkeeping
     return _layer_views(as_tree(params), cfg)
 
 
-# ----------------------------------------------------------------- forward ----
+def kv_len(cache: dict) -> int | None:
+    """The attention caches' length (every K/V and MLA latent leaf is
+    (layers, batch, kv_len, ...)); None for a cache without attention."""
+    for path, t in tree_leaves(cache):
+        if path.rsplit(".", 1)[-1] in ("k", "c_kv"):
+            return t.shape[2]
+    return None
 
+
+# ----------------------------------------------------------------- forward ----
 def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Tokens (B, S) -> final-norm hidden states (B, S, d)."""
-    layers, params = _layers(params, cfg), as_tree(params)
+    (stages, shared), params = _layers(params, cfg), as_tree(params)
     x = embed(params["embed"], tokens, cfg)
-    for stage in layers:
+    for (kind, _), stage in zip(layer_plan(cfg), stages):
+        if kind == "zamba_seg":
+            x = hybrid_mod.zamba_seg_scan(stage, cfg, x, shared)
+            continue
+        fwd = _BLOCKS[kind]["fwd"]
         for lp in stage:
-            x = dense_block_fwd(lp, cfg, x)
+            x = fwd(lp, cfg, x)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
     """Process a prompt; return (last-position logits (B, 1, V), cache)."""
-    layers, params = _layers(params, cfg), as_tree(params)
+    (stages, shared), params = _layers(params, cfg), as_tree(params)
     x = embed(params["embed"], tokens, cfg)
     caches = {}
-    for i, stage in enumerate(layers):
-        per_layer = []
-        for lp in stage:
-            x, c = dense_block_prefill(lp, cfg, x, max_len)
-            per_layer.append(c)
-        caches[f"stage_{i}"] = {name: torch.stack([c[name] for c in per_layer])
-                                for name in ("k", "v")}
+    for i, ((kind, _), stage) in enumerate(zip(layer_plan(cfg), stages)):
+        if kind == "zamba_seg":
+            x, caches[f"stage_{i}"] = hybrid_mod.zamba_seg_prefill_scan(
+                stage, cfg, x, shared, max_len)
+            continue
+        pf = _BLOCKS[kind]["prefill"]
+        buf = None
+        for j, lp in enumerate(stage):
+            x, c = pf(lp, cfg, x, max_len)
+            buf = store_layer(buf, j, len(stage), c)
+        caches[f"stage_{i}"] = buf
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params["embed"], h[:, -1:, :], cfg), caches
 
@@ -193,16 +388,23 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
 def lm_decode(params, cfg: ModelConfig, token: torch.Tensor, pos, cache: dict):
     """One decode step. token: (B, 1) ids; pos: a Python int (every row at
     the same position) or a (B,) tensor. The cache is written in place and
-    returned with the logits (B, 1, V). The positions are range-checked
-    once for the whole step (one host read for a tensor), not per layer."""
-    layers, params = _layers(params, cfg), as_tree(params)
-    attn.check_positions(pos, cache["stage_0"]["k"].shape[2])
+    returned with the logits (B, 1, V). Attention positions are
+    range-checked once for the whole step (one host read for a tensor), not
+    per layer; the recurrent blocks ignore ``pos``, as in the reference."""
+    (stages, shared), params = _layers(params, cfg), as_tree(params)
+    Smax = kv_len(cache)
+    if Smax is not None:
+        attn.check_positions(pos, Smax)
     x = embed(params["embed"], token, cfg)
-    for i, stage in enumerate(layers):
+    for i, ((kind, _), stage) in enumerate(zip(layer_plan(cfg), stages)):
         sc = cache[f"stage_{i}"]
+        if kind == "zamba_seg":
+            x, _ = hybrid_mod.zamba_seg_decode_scan(stage, cfg, x, sc, shared,
+                                                    pos)
+            continue
+        dec = _BLOCKS[kind]["decode"]
         for layer, lp in enumerate(stage):
-            lc = {"k": sc["k"][layer], "v": sc["v"][layer]}
-            x, _ = dense_block_decode(lp, cfg, x, lc, pos)
+            lc = tree_map(lambda t, layer=layer: t[layer], sc)
+            x, _ = dec(lp, cfg, x, lc, pos)
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params["embed"], h, cfg), cache
-

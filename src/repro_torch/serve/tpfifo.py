@@ -62,7 +62,7 @@ import torch
 from repro_torch import rng
 from repro_torch.core import scheduler as sched
 from repro_torch.models import api
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, tree_leaves
 
 # ------------------------------------------------------------------ queue ----
 @dataclasses.dataclass
@@ -792,8 +792,9 @@ def reset_slot_rows(cache, mask, *, axes_def: tuple):
 
 
 def cache_leaves(cache) -> list:
-    """A cache tree's tensors ({stage: {k|v: tensor}}), in leaf order."""
-    return [x for stage in cache.values() for x in stage.values()]
+    """A cache tree's leaves ({stage: {...: tensor}}, nested as deep as the
+    family's segments), in ``models.common.tree_leaves``' order."""
+    return [x for _, x in tree_leaves(cache)]
 
 
 def cache_batch_axes(mcfg: ModelConfig, n_slots: int, max_len: int) -> tuple:

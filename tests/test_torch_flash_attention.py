@@ -184,13 +184,13 @@ def test_tc_body_rounding_within_bf16_tolerance(shape, causal):
           "bfloat16")
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 112, 128])
 def test_body_for_routes_bf16_instances_to_the_tensor_cores(d):
     assert tfa.body_for(torch.bfloat16, d) == "tensor_cores"
     assert tfa.body_for(torch.float32, d) == "cuda_cores"
 
 
-@pytest.mark.parametrize("d", [16, 48, 100, 112, 160, 256])
+@pytest.mark.parametrize("d", [16, 48, 100, 144, 160, 256])
 def test_body_for_routes_other_head_dims_to_the_cuda_cores(d):
     assert tfa.body_for(torch.bfloat16, d) == "cuda_cores"
     assert tfa.body_for(torch.float32, d) == "cuda_cores"

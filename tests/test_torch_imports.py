@@ -384,13 +384,16 @@ def test_launcher_runs_this_slices_flags(flags, capsys):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: tconfigs.get_config("zamba2-7b"), "A12"),
-    (lambda: tconfigs.get_config("deepseek-v2-236b"), "A12"),
-    (lambda: tapi.specs(ModelConfig(family="moe", n_experts=4)), "A12"),
-    (lambda: tapi.specs(ModelConfig(family="encdec")), "A12"),
-    (lambda: tapi.specs(ModelConfig(use_mla=True)), "A12"),
+    (lambda: tapi.specs(tconfigs.reduced_config("zamba2-7b").replace(
+        attn_chunk=4)), "A12c"),
+    (lambda: tapi.specs(tconfigs.reduced_config("deepseek-v2-236b").replace(
+        attn_chunk=4)), "A12c"),
+    (lambda: tapi.specs(ModelConfig(family="moe", n_experts=4,
+                                    attn_chunk=4)), "A12c"),
+    (lambda: tapi.specs(ModelConfig(family="encdec")), "A12c"),
+    (lambda: tapi.specs(ModelConfig(use_mla=True, attn_chunk=4)), "A12c"),
     (lambda: tapi.prefill({}, ModelConfig(), {"tokens": torch.zeros(
-        1, 2, dtype=torch.int32), "patches": torch.zeros(1)}, 4), "A12")],
+        1, 2, dtype=torch.int32), "patches": torch.zeros(1)}, 4), "A12c")],
     ids=["zamba2", "deepseek", "moe", "encdec", "mla", "vlm-extras"])
 def test_lm_out_of_slice_calls_raise_not_implemented(call, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):

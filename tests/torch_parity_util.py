@@ -123,15 +123,15 @@ WINS_RTOL = 1e-5
 DECISION_GAP = 1e-5
 
 
-def decode_tree_parts(ttree, jtree) -> list[str]:
-    """Fields in which the two token trees part (wins to WINS_RTOL)."""
+def decode_tree_parts(ttree, jtree, wins_rtol: float = WINS_RTOL) -> list[str]:
+    """Fields in which the two token trees part (wins to ``wins_rtol``)."""
     got, want = convert.tree_to_numpy(ttree), jax_tree_fields(jtree)
     bad = []
     for k in want:
         if got[k].dtype != want[k].dtype:
             bad.append(k)
         elif k == "wins":
-            if not np.allclose(got[k], want[k], rtol=WINS_RTOL, atol=1e-9):
+            if not np.allclose(got[k], want[k], rtol=wins_rtol, atol=1e-9):
                 bad.append(k)
         elif not np.array_equal(got[k], want[k]):
             bad.append(k)
@@ -139,18 +139,21 @@ def decode_tree_parts(ttree, jtree) -> list[str]:
 
 
 def assert_same_decode_search(jcfg, jp, tcfg, tp, prompt: np.ndarray,
-                              dkw: dict, seed: int):
+                              dkw: dict, seed: int,
+                              wins_rtol: float = WINS_RTOL):
     """Whole mcts_decode_search in both packages on the same weights;
-    returns the port's (tree, stats)."""
+    returns the port's (tree, stats). ``wins_rtol`` is for models whose
+    logits part by more than a shallow model's (a caller says why)."""
     ttree, tstats = _tmd.mcts_decode_search(
         tp, tcfg, torch.from_numpy(prompt), _tmd.MCTSDecodeConfig(**dkw),
         rng.key(seed, "cpu"), device="cpu")
     jtree, jstats = _jmd.mcts_decode_search(
         jp, jcfg, jnp.asarray(prompt), _jmd.MCTSDecodeConfig(**dkw),
         jax.random.key(seed))
-    fields = decode_tree_parts(ttree, jtree)
+    fields = decode_tree_parts(ttree, jtree, wins_rtol)
     if fields:
-        explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields)
+        explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields,
+                                  wins_rtol)
     else:
         for k in ("playouts", "tree_nodes", "best_token", "grain",
                   "root_children"):
@@ -162,10 +165,10 @@ def _port_decisions(tree, params, mcfg, cfg, cache, root, P, cp, keys, active):
     """The decisions of one port iteration, recorded by the port's own
     ``_iteration`` run on copies of the tree and cache."""
     rec: dict = {}
+    from repro_torch.models.common import tree_map
     _tmd._iteration(parity.clone_tree(tree), params, mcfg, cfg,
-                    {s: {n: c.clone() for n, c in v.items()}
-                     for s, v in cache.items()},
-                    root, P, cp, keys, active, record=rec)
+                    tree_map(torch.clone, cache), root, P, cp, keys, active,
+                    record=rec)
     rec["samples"] = torch.stack(rec["samples"], 1)
     return rec
 
@@ -237,7 +240,8 @@ def first_divergent_decision(tree, cfg, port: dict, ref: dict, cp, keys):
     return None
 
 
-def explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields):
+def explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields,
+                              wins_rtol: float = WINS_RTOL):
     """Step both packages one iteration at a time; at the first iteration
     after which the trees part, replay its decisions in both from the
     port's tree before it and require the first differing one to sit
@@ -261,7 +265,7 @@ def explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields):
                                         P, tdc.cp, keys, active)
         jtree, jcache = step(jtree, jp, jcfg, jdc, jcache, jroot, jnp.int32(P),
                              cp, jax_keys(keys), jnp.asarray(active.numpy()))
-        if not decode_tree_parts(ttree, jtree):
+        if not decode_tree_parts(ttree, jtree, wins_rtol):
             continue
         port = _port_decisions(before, tp, tcfg, tdc, tcache, troot, P,
                                tdc.cp, keys, active)
