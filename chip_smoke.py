@@ -12,7 +12,7 @@ Hex path's ``select_descent`` (a whole selection round in one launch) and
 ``hex_playout`` (a whole playout in one launch), the one-tile
 ``uct_select`` and ``hex_winner``, both bodies of ``flash_attention``, the
 bf16 tensor-core one and the CUDA-core one, and ``rmsnorm`` — and drives
-the port's five paths:
+the port's paths:
 
 - one full-width GSCPM Hex search (11x11, 256 lanes, the paper's 1,048,576
   playouts) through ``repro_torch.core.gscpm.gscpm_search``, checking among
@@ -31,8 +31,8 @@ the port's five paths:
   cost, no kernel build inside a span);
 - the root-parallel forest (``repro_torch.core.root_parallel.
   gscpm_search_batch``): 8 trees of 32 lanes on 11x11 Hex, three self-play
-  moves (131,072 playouts a member, then ``reroot_forest`` at the visit-sum
-  move and two warm moves of 32,768), checking that each sync iteration
+  moves (65,536 playouts a member, then ``reroot_forest`` at the visit-sum
+  move and two warm moves of 16,384), checking that each sync iteration
   launches ``select_descent`` once per selection round and ``hex_playout``
   once for all members, the re-root retention contract on every member
   after every move, and at 8,192 playouts a member that each member equals
@@ -54,12 +54,12 @@ the port's five paths:
   its direct reference; a seeded fault plan's answers equal the fault-free
   ones; one engine tick profiled (CUDA activity);
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
-  weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 2
-  tokens after a 128-token prompt, 1,024 playouts on 64 lanes per token,
-  run twice with bit-identical tokens and trees, then once more, and one
+  weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 1
+  token after a 128-token prompt, 1,024 playouts on 64 lanes, run twice
+  with bit-identical tokens and trees, then once more, and one
   search stepped side by side, with the kernels' plain versions;
 - LM serving on the same model: B = 4 token trees searched as one forest
-  (``lm_batch``: ``mcts_generate_batch`` of 2 tokens for 4 prompts of
+  (``lm_batch``: ``mcts_generate_batch`` of 1 token for 4 prompts of
   128, 112, 96 and 128 tokens, 64 lanes a member, 256 playouts a token;
   one ``uct_select`` launch a descent level for all 256 lanes, a masked
   member left empty, run twice bit-identical, kernels against plain
@@ -72,16 +72,29 @@ the port's five paths:
 - the MoE, MLA, hybrid and xLSTM families at their published widths
   (``lm_families``, bf16, random weights, one model at a time):
   qwen3-moe-235b-a22b and deepseek-v2-236b cut to their first 2 layers,
-  zamba2-7b and xlstm-1.3b whole; each serves 4 requests of 16 greedy
+  zamba2-7b and xlstm-1.3b whole; each serves 4 requests of 8 greedy
   tokens through ``SlotEngine`` and ``TPFIFOEngine`` (run twice, the same
   tokens), its logits held against the plain versions in float32 and
   bf16 (the MoE runs on one routing, every parting of the plain run's own
   a near-tie), and xlstm-1.3b one search-guided token (``MCTSSlotEngine``,
   64 lanes, 256 playouts), with rmsnorm at the families' widths and flash
-  at qwen3-moe's and zamba2's head dims held and timed.
+  at qwen3-moe's and zamba2's head dims held and timed;
+- the vlm and encoder-decoder families at their published widths
+  (``lm_vlm_encdec``, bf16, random weights, one model at a time):
+  paligemma-3b (18 layers) and seamless-m4t-medium (12 + 12 layers) whole;
+  each prefills 4 requests of 256 seeded patches or frames and 64 tokens,
+  then takes 16 greedy steps (twice, the same tokens), its logits held
+  against the plain versions; seamless also one search-guided token
+  (``mcts_decode_search``, 64 lanes, 256 playouts) and one batched token
+  for the 4 requests (``mcts_decode_search_batch``), each run twice
+  bit-identical and, on float32 weights, equal to its run with the plain
+  versions; paligemma's search with patches is refused (its prefix does
+  not fit the search's cache, as in the reference) before any kernel.
 
 ``lm_kernels`` also holds and times flash attention, rmsnorm and the
-one-tile ``uct_select`` at LM serving's shapes (``new_shapes``).
+one-tile ``uct_select`` at LM serving's shapes (``new_shapes``), the
+families' (``families_shapes``) and the vlm and encdec models'
+(``vlm_encdec_shapes``).
 
 Each phase prints one JSON line; any failed check ends the run with a
 non-zero exit code. Without a GPU it exits non-zero and prints no result.
@@ -108,6 +121,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # published peaks of one H100 SXM (NVIDIA data sheet). A kernel's bound is
 # the larger of bytes / memory rate and operations / rate; the integer and
@@ -142,14 +156,15 @@ TRACE_FIT_TASKS = (256, 1024, 4096)
 METRICS_CHECK_PLAYOUTS = 8192
 
 # the root-parallel forest path: 8 trees of 32 lanes (256 lanes a launch,
-# the single tree's width), 128 tasks a member (grain 1024 on the first
-# move, the single tree's), 131,072 playouts a member (the paper's budget
-# over the ensemble); then the visit-sum move is played, the forest
-# re-rooted, and two warm moves searched at 32,768 playouts a member
+# the single tree's width), 128 tasks a member (grain 512 on the first
+# move), 65,536 playouts a member (half the paper's budget over the
+# ensemble, to keep the script inside its time limit); then the visit-sum
+# move is played, the forest re-rooted, and two warm moves searched at
+# 16,384 playouts a member
 FOREST = dict(board_size=11, n_workers=32, n_tasks=128, tree_cap=1 << 18,
               scheduler="fifo", cp=1.0, vl_rounds=1)
 FOREST_TREES = 8
-FOREST_PLAYOUTS = (131_072, 32_768, 32_768)
+FOREST_PLAYOUTS = (65_536, 16_384, 16_384)
 # the forest's checks: 4 members at 8,192 playouts each
 FOREST_CHECK = dict(n_trees=4, n_playouts=8192)
 # Gomoku: free-style, the standard 15x15 board, one tree of 256 lanes,
@@ -189,8 +204,8 @@ CHAOS_TREE_CAP = 1 << 14
 TICK_PLAYOUTS = 16_384
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
-# 2 generated tokens (2, not more, leaves the LM serving phases room in the
-# time limit), each from a GSCPM search of 1,024 playouts on 64 lanes
+# 2 generated tokens (the second search starts from the committed first),
+# each from a GSCPM search of 1,024 playouts on 64 lanes
 LM_PROMPT_LEN = 128
 LM_TOKENS = 2
 LM_PLAYOUTS = 1024
@@ -260,6 +275,40 @@ FAMILY_NORM_WIDTHS = ((4096, "qwen3-moe d_model; xLSTM mLSTM inner"),
 FAMILY_NORM_ROWS = (4, 128)
 FAMILY_FLASH_SHAPES = (((1, 64, 4, 128, 128), "qwen3-moe prefill"),
                        ((1, 32, 32, 128, 112), "zamba2 shared attention"))
+# - lm_vlm_encdec: paligemma-3b (18 layers, MQA at head dim 256, tanh
+#   gelu) and seamless-m4t-medium (12 encoder + 12 decoder layers) whole at
+#   their published widths, bf16, seed-0 random weights, use_flash, one at
+#   a time. Traffic: VE_ROWS rows of VE_SRC_LEN seeded patches (width 1152,
+#   as models.vlm.fake_patches makes them) or frames (width 1024) and
+#   VE_PROMPT_LEN seeded tokens, a prefill, then VE_DECODE_STEPS greedy
+#   steps. On seamless also one search-guided token (mcts_decode_search, the
+#   LM_SEARCH width, VE_SEARCH_PLAYOUTS playouts) and one batched token for
+#   the VE_ROWS requests (mcts_decode_search_batch, 64 lanes a request).
+VE_MODELS = ("paligemma-3b", "seamless-m4t-medium")
+VE_ROWS = 4
+VE_SRC_LEN = 256
+VE_PROMPT_LEN = 64
+VE_DECODE_STEPS = 16
+VE_SEARCH_PLAYOUTS = 256
+# the two models' rmsnorm widths (D, which norm, the path's row counts):
+# paligemma's 4 decode rows and its 4 x 320-position prefill; seamless's 4
+# decode rows, its 4 x 64-token decoder prefill (also the batched search's
+# decode lanes), its 4 x 256-frame encoder, and the single search's encoder
+# on 64 lanes (also the batched search's decoder prefill); and seamless's
+# decoder prefill for flash (B, H, Hkv, S, d)
+VE_NORM_SHAPES = (
+    (2048, "paligemma-3b d_model", (VE_ROWS, VE_ROWS * (VE_SRC_LEN
+                                                        + VE_PROMPT_LEN))),
+    (1024, "seamless-m4t-medium d_model",
+     (VE_ROWS, VE_ROWS * VE_PROMPT_LEN, VE_ROWS * VE_SRC_LEN,
+      LM_SEARCH["n_workers"] * VE_SRC_LEN)))
+VE_FLASH_SHAPE = ((VE_ROWS, 16, 16, VE_PROMPT_LEN, 64),
+                  "seamless-m4t-medium decoder prefill")
+# float32 search trees, kernels vs plain versions: every field but wins
+# equal, wins within this relative tolerance (values are exp(mean logp) of
+# logits that differ by float32 rounding); else the searches are stepped
+# side by side and must part only at decisions their error explains
+VE_WINS_RTOL = 1e-4
 # kernel vs plain version on the card: the tolerances of the JAX package's
 # own kernel tests (tests/test_kernels.py) for attention. For the norm in
 # float32, where its two rounding orders are one function, one float32
@@ -301,7 +350,10 @@ LOGITS_TOL = 0.05
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, stamped with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def check(cond, msg: str) -> None:
@@ -1393,8 +1445,8 @@ def paired_iteration_ms(torch, forest, boards, fcfg, tree, board, tcfg,
 
 def phase_hex_forest(torch):
     """The root-parallel forest path at full width: 8 trees of 32 lanes,
-    three self-play moves (131,072 playouts a member, then the visit-sum
-    move played, the forest re-rooted and two warm moves of 32,768), each
+    three self-play moves (65,536 playouts a member, then the visit-sum
+    move played, the forest re-rooted and two warm moves of 16,384), each
     sync iteration one pass for all members."""
     from repro_torch import parity, rng
     from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
@@ -2304,9 +2356,19 @@ def phase_lm_kernels(torch):
     q32, k32, v32 = (t.float() for t in (q, k, v))
     f32_call = lambda: ops.flash_attention(q32, k32, v32, causal=True)
     f32_bound, f32_by = bound_ms(2 * fa_bytes, fa_ops, OPS_PER_S)
-    cuda_cores = {"dtype": "float32", "ms": time_ms(f32_call, iters=50),
+    q32c, k32c, v32c = (t.float().contiguous() for t in (qh, kh, vh))
+    lib32 = lambda: F.scaled_dot_product_attention(
+        q32c, k32c, v32c, is_causal=True, enable_gqa=True)
+    f32_ms, f32_lib = time_pair_ms(f32_call, lib32, iters=50)
+    cuda_cores = {"dtype": "float32", "ms": f32_ms,
                   "in_graph_ms": graph_ms(f32_call, launches=10),
-                  "bound_ms": f32_bound, "bound_by": f32_by}
+                  "plain_ms": time_ms(lambda: ref.flash_attention(
+                      q32c, k32c, v32c, causal=True), iters=20, warmup=3),
+                  "bound_ms": f32_bound, "bound_by": f32_by,
+                  "library_ms": f32_lib,
+                  "library_in_graph_ms": graph_ms(lib32, launches=10),
+                  "library_max_abs_diff": float(
+                      (lib32().transpose(1, 2) - f32_call()).abs().max())}
     lib = _build.load()
     blocks_per_sm = lib.repro_flash_attention_tc_blocks_per_sm(d)
     tensor_cores = {
@@ -2419,22 +2481,23 @@ def phase_lm_kernels(torch):
             "bound_ms": bound, "bound_by": by, "library_ms": None})
         return out
 
-    def lm_kernels_families_shapes() -> dict:
-        """rmsnorm and flash attention at the shapes the families give them,
-        each held against its plain version there and timed eagerly (in turns
-        with the library call), in a CUDA graph and plain, beside its bound:
-        rmsnorm (bf16, the model's order) at every new width
-        (FAMILY_NORM_WIDTHS) on a decode step's rows and a prefill's; flash
-        attention (bf16, bshd) at qwen3-moe's prefill (64 heads over 4, d 128)
-        and zamba2's (32 heads, d 112), both on the tensor-core body."""
+    def kernels_at_shapes(norm_shapes, flash_shapes, seed: int) -> dict:
+        """rmsnorm and flash attention at the shapes a path gives them, each
+        held against its plain version there (and its difference from the
+        library call recorded) and timed eagerly (in turns with the library
+        call), in a CUDA graph and plain, beside its bound: rmsnorm (bf16, the
+        model's order) at each of ``norm_shapes`` ((D, which norm, the row
+        counts the path gives it)); flash attention (bf16, bshd) at each
+        of ``flash_shapes`` (((B, H, Hkv, S, d), whose)), on the body
+        ``body_for`` names."""
         import torch.nn.functional as F
         from repro_torch.kernels import flash_attention as fa, ops, ref
-        g = torch.Generator(device="cuda").manual_seed(9)
+        g = torch.Generator(device="cuda").manual_seed(seed)
         bf = torch.bfloat16
         out = {"rmsnorm": [], "flash_attention": []}
-        for D, where in FAMILY_NORM_WIDTHS:
+        for D, where, norm_rows in norm_shapes:
             w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
-            for N in FAMILY_NORM_ROWS:
+            for N in norm_rows:
                 x = (3 * torch.randn(N, 1, D, generator=g, device="cuda")).to(bf)
                 call = lambda: ops.rmsnorm(x, w, 1e-5, order="model")
                 plain = lambda: ref.rmsnorm(x, w, 1e-5, order="model")
@@ -2453,11 +2516,13 @@ def phase_lm_kernels(torch):
                     "shape": [N, 1, D], "width_of": where, "dtype": "bfloat16",
                     "order": "model",
                     "max_abs_err": float((got.float() - want.float()).abs().max()),
+                    "library_max_abs_diff": float(
+                        (got.float() - lib().float()).abs().max()),
                     "share_differing": share, "max_bf16_steps": steps, "ms": ms,
                     "in_graph_ms": graph_ms(call), "plain_ms": time_ms(plain),
                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                     "library_in_graph_ms": graph_ms(lib)})
-        for (B, H, Hkv, S, d), where in FAMILY_FLASH_SHAPES:
+        for (B, H, Hkv, S, d), where in flash_shapes:
             q = torch.randn(B, S, H, d, generator=g, device="cuda").to(bf)
             k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
             v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(bf)
@@ -2485,7 +2550,10 @@ def phase_lm_kernels(torch):
                                  if body == "tensor_cores" else OPS_PER_S)
             out["flash_attention"].append({
                 "shape": [B, H, Hkv, S, d], "of": where, "dtype": "bfloat16",
-                "layout": "bshd", "body": body, "max_abs_err": err, "ms": ms,
+                "layout": "bshd", "body": body, "max_abs_err": err,
+                "library_max_abs_diff": float(
+                    (got.float() - lib().transpose(1, 2).float()).abs().max()),
+                "ms": ms,
                 "in_graph_ms": graph_ms(call),
                 "plain_ms": time_ms(plain, iters=10, warmup=2),
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
@@ -2493,7 +2561,10 @@ def phase_lm_kernels(torch):
         return out
 
     new_shapes = lm_kernels_new_shapes()
-    families_shapes = lm_kernels_families_shapes()
+    families_shapes = kernels_at_shapes(
+        [(D, where, FAMILY_NORM_ROWS) for D, where in FAMILY_NORM_WIDTHS],
+        FAMILY_FLASH_SHAPES, seed=9)
+    ve_shapes = kernels_at_shapes(VE_NORM_SHAPES, (VE_FLASH_SHAPE,), seed=10)
     records = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2512,7 +2583,8 @@ def phase_lm_kernels(torch):
          "library_max_abs_diff": fa_lib_err,
          "bodies": {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores},
          "new_shapes": new_shapes["flash_attention"],
-         "families_shapes": families_shapes["flash_attention"]},
+         "families_shapes": families_shapes["flash_attention"],
+         "vlm_encdec_shapes": ve_shapes["flash_attention"]},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:19",
@@ -2527,7 +2599,8 @@ def phase_lm_kernels(torch):
          "prefill_bound_ms": rn_prefill_bound,
          "prefill_library_in_graph_ms": rn_prefill_lib_graph,
          "new_shapes": new_shapes["rmsnorm"],
-         "families_shapes": families_shapes["rmsnorm"]},
+         "families_shapes": families_shapes["rmsnorm"],
+         "vlm_encdec_shapes": ve_shapes["rmsnorm"]},
     ]
     emit("lm_kernels", flash_attention=flash, rmsnorm=norm,
          timed={r["name"]: {k: r[k] for k in (
@@ -2538,7 +2611,8 @@ def phase_lm_kernels(torch):
          rmsnorm_prefill={k: records[1][k] for k in (
              "prefill_shape", "prefill_in_graph_ms", "prefill_bound_ms",
              "prefill_library_in_graph_ms")},
-         new_shapes=new_shapes, families_shapes=families_shapes)
+         new_shapes=new_shapes, families_shapes=families_shapes,
+         vlm_encdec_shapes=ve_shapes)
     return records, new_shapes["uct_select"]
 
 
@@ -3002,7 +3076,7 @@ def batch_vs_singles(torch, params, mcfg, dcfg, prompts, lens, key):
 
 def phase_lm_batch(torch, model=None):
     """B = 4 token trees searched as one forest (``mcts_generate_batch``)
-    on SmolLM-135M at its published width: 2 tokens for 4 prompts of true
+    on SmolLM-135M at its published width: 1 token for 4 prompts of true
     lengths 128, 112, 96 and 128 in one (4, 128) matrix, W = 64, 256
     playouts a token. Checks: root visits == 256 on every member, the
     forest's invariants, a masked member left at one node with best token
@@ -3173,7 +3247,7 @@ def phase_lm_serve(torch, model=None):
     """Greedy LM serving at full width on a Poisson trace of 16 requests
     (``benchmarks_torch.tpfifo.make_trace``): the TPFIFO engine (8 slots,
     max_len 256, grain 8), then the lockstep ``SlotEngine`` on the same
-    trace. Checks: every request ends with 32 tokens; grain 4 and
+    trace. Checks: every request ends with 16 tokens; grain 4 and
     preemption after every quantum give the TPFIFO tokens bit for bit; no
     kernel build during the run; flash never on the TPFIFO engine (its
     prefill is chunked through decode), 30 launches an admission on
@@ -3383,13 +3457,15 @@ def phase_lm_mcts_serve(torch, model=None):
 
 
 # ------------------------------------------------------------- LM families ----
-def family_model(torch, arch: str):
-    """One LM_FAMILIES model at its published widths, bf16, random weights
-    from seed 0: (config, params, {"parameters", "init_s",
+def family_model(torch, arch: str, overrides: dict | None = None):
+    """One model at its published widths, bf16, random weights from seed 0,
+    its config replaced by ``overrides`` (by default its LM_FAMILIES
+    entry): (config, params, {"parameters", "init_s",
     "memory_after_init_mb"})."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
-    mcfg = get_config(arch).replace(**LM_FAMILIES[arch])
+    mcfg = get_config(arch).replace(
+        **(LM_FAMILIES[arch] if overrides is None else overrides))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_params(mcfg, seed=0, device="cuda")
@@ -3467,11 +3543,12 @@ def routing_partings(torch, a: list, b: list) -> dict:
             "max_gap_over_measured_diff": worst_ratio}
 
 
-def family_logits_vs_plain(torch, params, mcfg):
+def family_logits_vs_plain(torch, params, mcfg, extras=None):
     """The model's prefill (LM_FAMILY_CHECK_LEN seeded tokens on each of
-    len(LM_FAMILY_LENS) rows) and two decode steps on seeded tokens, with
-    the kernels and with their plain versions, in bf16 and on a float32
-    copy of the weights:
+    len(LM_FAMILY_LENS) rows, after the vlm's or encdec's ``extras``, one
+    row each) and two decode steps on seeded tokens, with the kernels and
+    with their plain versions, in bf16 and on a float32 copy of the
+    weights:
 
     - float32: kernels vs plain within FAMILY_F32_TOL of the largest logit;
     - bf16: the kernel run no farther from the float32 plain run than the
@@ -3494,18 +3571,21 @@ def family_logits_vs_plain(torch, params, mcfg):
     from repro_torch.models.common import tree_map
     from repro_torch.models.transformer import TransformerLM
     B, P = len(LM_FAMILY_LENS), LM_FAMILY_CHECK_LEN
+    extras = extras or {}
+    # the vlm's decode positions follow its patch prefix
+    off = extras["patches"].shape[1] if "patches" in extras else 0
     g = torch.Generator(device="cuda").manual_seed(4)
     toks = torch.randint(1, mcfg.vocab, (B, P + 2), generator=g,
                          device="cuda", dtype=torch.int32)
 
     def run(ctx, prm, cfg, replay):
         with ctx(), moe_routing(torch, replay) as calls:
-            logits, cache = api.prefill(prm, cfg, {"tokens": toks[:, :P]},
-                                        P + 2)
+            logits, cache = api.prefill(
+                prm, cfg, {"tokens": toks[:, :P], **extras}, off + P + 2)
             out = [logits[:, 0].float()]
             for t in range(2):
                 logits, cache = api.decode(prm, cfg, toks[:, P + t:P + t + 1],
-                                           P + t, cache)
+                                           off + P + t, cache)
                 out.append(logits[:, 0].float())
         return out, calls
 
@@ -3565,7 +3645,6 @@ def family_timings(torch, params, mcfg):
     """Prefill ms of one LM_FAMILY_CHECK_LEN-token prompt, ms per decode
     step of len(LM_FAMILY_LENS) rows (host clock, device synchronised), and
     one profiled decode step's CUDA kernels, device ms and idle share."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import api
     B, P = len(LM_FAMILY_LENS), LM_FAMILY_CHECK_LEN
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -3588,20 +3667,27 @@ def family_timings(torch, params, mcfg):
         api.decode(params, mcfg, tok, P + t, cache)
     torch.cuda.synchronize()
     decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return {"prefill_ms": prefill_ms, "prefill_tokens": P,
+            "decode_step_ms": decode_ms, "decode_rows": B,
+            "profiled_decode_step": profiled_decode_step(
+                torch, params, mcfg, tok, P + steps, cache)}
+
+
+def profiled_decode_step(torch, params, mcfg, tok, pos, cache):
+    """One decode step under the profiler: its CUDA kernels, device ms and
+    idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api.decode(params, mcfg, tok, P + steps, cache)
+        api.decode(params, mcfg, tok, pos, cache)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels, device_ms = cuda_activity(prof)
     check(device_ms, f"{mcfg.name}: torch.profiler saw no CUDA kernel in a "
                      "decode step")
-    return {"prefill_ms": prefill_ms, "prefill_tokens": P,
-            "decode_step_ms": decode_ms, "decode_rows": B,
-            "profiled_decode_step": {
-                "cuda_kernels": kernels, "device_ms": device_ms,
-                "wall_ms": wall_ms,
-                "device_idle_share": 1 - device_ms / wall_ms}}
+    return {"cuda_kernels": kernels, "device_ms": device_ms,
+            "wall_ms": wall_ms, "device_idle_share": 1 - device_ms / wall_ms}
 
 
 def family_serving(torch, params, mcfg):
@@ -3742,6 +3828,278 @@ def phase_lm_families(torch):
     return launches, bodies
 
 
+# ------------------------------------------------- vlm and encoder-decoder ----
+def ve_inputs(torch, mcfg):
+    """The phase's traffic: VE_ROWS rows of VE_PROMPT_LEN seeded tokens and
+    the family's stub input, VE_SRC_LEN rows a request: patches as
+    ``models.vlm.fake_patches`` makes them, or unit-normal frames, bf16."""
+    from repro_torch.models import vlm
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(1, mcfg.vocab, (VE_ROWS, VE_PROMPT_LEN), generator=g,
+                         device="cuda", dtype=torch.int32)
+    if mcfg.family == "vlm":
+        check(mcfg.n_patches == VE_SRC_LEN, f"{mcfg.name}: n_patches")
+        return toks, {"patches": vlm.fake_patches(mcfg, VE_ROWS, g)}
+    frames = torch.randn(VE_ROWS, VE_SRC_LEN, mcfg.vision_width, generator=g,
+                         device="cuda").to(mcfg.cdtype)
+    return toks, {"frames": frames}
+
+
+def ve_greedy(torch, params, mcfg, toks, extras):
+    """The main path: one prefill of the VE_ROWS rows, then VE_DECODE_STEPS
+    greedy decode steps, each feeding the last step's argmax (host clock,
+    device synchronised). Returns (the tokens fed, a row each; prefill ms;
+    ms per decode step; the cache; the last token and position)."""
+    from repro_torch.models import api
+    off = extras["patches"].shape[1] if "patches" in extras else 0
+    pos0 = off + toks.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, mcfg, {"tokens": toks, **extras},
+                                pos0 + VE_DECODE_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fed = []
+    for t in range(VE_DECODE_STEPS):
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        fed.append(tok)
+        logits, cache = api.decode(params, mcfg, tok, pos0 + t, cache)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(bool(torch.isfinite(logits).all()), f"{mcfg.name}: non-finite logits")
+    return (torch.cat(fed, 1).tolist(), 1e3 * (t1 - t0),
+            1e3 * (t2 - t1) / VE_DECODE_STEPS, cache, fed[-1],
+            pos0 + VE_DECODE_STEPS - 1)
+
+
+def ve_search_cfg():
+    from repro_torch.serve.mcts_decode import MCTSDecodeConfig
+    return MCTSDecodeConfig(**{**LM_SEARCH, "n_playouts": VE_SEARCH_PLAYOUTS})
+
+
+def ve_vlm_search_refused(torch, params, mcfg, toks, extras):
+    """The vlm search sizes its cache by the prompt alone, as the reference
+    does: at full width the 256-patch prefix does not fit, and
+    ``mcts_decode_search`` must raise ``ValueError`` (the reference raises
+    in its prefill) with no kernel launched."""
+    from repro_torch import rng
+    from repro_torch.serve.mcts_decode import mcts_decode_search
+    dcfg = ve_search_cfg()
+    counters = zero_lm_counters()
+    try:
+        mcts_decode_search(params, mcfg, toks[0], dcfg, rng.key(0, "cuda"),
+                           {"patches": extras["patches"][:1]})
+    except ValueError as e:
+        msg = str(e)
+    else:
+        check(False, f"{mcfg.name}: the search with patches did not raise")
+    launched, _ = read_lm_counters(counters)
+    check(sum(launched.values()) == 0,
+          f"{mcfg.name}: the refused search launched {launched}")
+    return {"error": msg, "launches": launched,
+            "max_len": VE_PROMPT_LEN + dcfg.max_depth + dcfg.rollout_len + 1,
+            "prefill_positions": VE_SRC_LEN + VE_PROMPT_LEN}
+
+
+def ve_tree_parts(torch, a, b) -> list:
+    """The fields in which two trees (or forests) part: every field but wins
+    exactly, wins within VE_WINS_RTOL."""
+    from repro_torch.core.tree import Tree
+    return [f for f, x, y in zip(Tree._fields, a, b)
+            if not (torch.allclose(x, y, rtol=VE_WINS_RTOL, atol=1e-6)
+                    if f == "wins" else torch.equal(x, y))]
+
+
+def ve_searches(torch, params, mcfg, toks, frames):
+    """seamless's search-guided tokens: one ``mcts_decode_search`` for
+    request 0 and one ``mcts_decode_search_batch`` for the VE_ROWS requests
+    (64 lanes a request, each request its own frames), launches counted
+    from zero; each run again, bit-identical."""
+    from repro_torch import parity, rng
+    from repro_torch.serve import mcts_decode as md
+    dcfg = ve_search_cfg()
+    key = rng.key(11, "cuda")
+    runs = {
+        "single": lambda: md.mcts_decode_search(
+            params, mcfg, toks[0], dcfg, key, {"frames": frames[:1]}),
+        "batch": lambda: md.mcts_decode_search_batch(
+            params, mcfg, toks, dcfg, key, batch_extras={"frames": frames})}
+    out, launches, bodies = {}, {}, {}
+    for name, run in runs.items():
+        counters = zero_lm_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, st = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name], bodies[name] = read_lm_counters(counters)
+        again, st2 = run()
+        differ = parity.differing_fields(tree, again)
+        check(not differ, f"{mcfg.name} {name} search: run twice, the trees "
+                          f"differ in {differ}")
+        best = st.get("best_tokens", st.get("best_token"))
+        check(best == st2.get("best_tokens", st2.get("best_token")),
+              f"{mcfg.name} {name} search: best tokens differ run to run")
+        out[name] = {
+            "best": best, "seconds": wall, "tokens_per_s":
+                (VE_ROWS if name == "batch" else 1) / wall,
+            "prefill_s": st["prefill_s"], "search_s": st["time_s"],
+            "playouts": st["playouts"], "playouts_per_s": st["playouts_per_s"],
+            "sync_iterations": st["sync_iterations"],
+            "tree_nodes": st["tree_nodes"], "launches": launches[name],
+            "bit_identical_run_twice": True}
+    return out, add_counts(*launches.values()), add_counts(*bodies.values())
+
+
+def ve_searches_vs_plain(torch, params, mcfg, toks, frames):
+    """On a float32 copy of the weights, each seamless search with the
+    kernels against the same search under ``ops.plain_versions()``, and the
+    search stepped both ways (``parity.step_decode_search`` / ``_batch``):
+    its root, leaf and rollout logits agree within LOGITS_TOL of the
+    largest logit (the kernels at the search's 64- and 256-lane prefills
+    and decode steps), it parts only at decisions its measured error
+    explains, and the trees are equal (wins to VE_WINS_RTOL) unless the
+    stepped search parted."""
+    from repro_torch import parity, rng
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve import mcts_decode as md
+    dcfg = ve_search_cfg()
+    key = rng.key(11, "cuda")
+    f32 = mcfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = TransformerLM(f32, tree_map(lambda t: t.detach().float(),
+                                      params.tree()))
+    fr = frames.float()
+    runs = {
+        "single": (lambda: md.mcts_decode_search(
+            p32, f32, toks[0], dcfg, key, {"frames": fr[:1]})[0],
+            lambda: parity.step_decode_search(
+                p32, f32, dcfg, toks[0], key, ops.plain_versions,
+                batch_extras={"frames": fr[:1]})),
+        "batch": (lambda: md.mcts_decode_search_batch(
+            p32, f32, toks, dcfg, key, batch_extras={"frames": fr})[0],
+            lambda: parity.step_decode_search_batch(
+                p32, f32, dcfg, toks, key, ops.plain_versions,
+                batch_extras={"frames": fr}))}
+    out = {}
+    for name, (run, step) in runs.items():
+        kernels = run()
+        with ops.plain_versions():
+            plain = run()
+        parts = ve_tree_parts(torch, kernels, plain)
+        rep = step()
+        scale = rep["max_abs_logit"]
+        for err in ("root_err", "leaf_err", "rollout_err"):
+            check(rep[err] <= LOGITS_TOL * scale,
+                  f"{mcfg.name} float32 {name} search {err}: kernels vs "
+                  f"plain max abs err {rep[err]} above {LOGITS_TOL} x {scale}")
+        check(not rep["unexcused"],
+              f"{mcfg.name} float32 {name} search: kernels and plain versions "
+              "part at decisions their measured error does not explain: "
+              f"{rep['unexcused'][:3]}")
+        check(not parts or rep["parted_at"] is not None,
+              f"{mcfg.name} float32 {name} search: the trees part in {parts}, "
+              "yet the stepped search never parted")
+        out[name] = {"trees_equal": not parts, "parted_fields": parts,
+                     "wins_max_abs_diff": float(
+                         (kernels.wins - plain.wins).abs().max()),
+                     "stepped": {k: v for k, v in rep.items()
+                                 if k != "unexcused"}}
+    del p32
+    return {**out, "tolerance": f"logits {LOGITS_TOL} x max |logit|; every "
+                                "parting decision within 2 x its measured "
+                                "error; every tree field but wins equal, wins "
+                                f"to rtol {VE_WINS_RTOL}, unless the stepped "
+                                "search parted"}
+
+
+def phase_lm_vlm_encdec(torch):
+    """paligemma-3b and seamless-m4t-medium whole at their published widths
+    (VE_MODELS: bf16, seed-0 random weights, use_flash), one at a time,
+    each freed before the next (``lm_kernels`` holds and times the kernels
+    at their shapes): per model its parameters and memory, its logits with
+    the kernels against the plain versions (``family_logits_vs_plain``'s
+    rules, after the model's stub input), and its main path counted from
+    zero: VE_ROWS requests of VE_SRC_LEN patches or frames and
+    VE_PROMPT_LEN tokens, a prefill and VE_DECODE_STEPS greedy steps (prefill
+    ms, ms per decode step, tokens/s, peak memory, run twice with the same
+    tokens, one profiled step); on seamless also one search-guided token
+    and one batched token for the VE_ROWS requests (``ve_searches``), held
+    on float32 weights against the plain versions. On paligemma the
+    search with patches must be refused with no kernel launched. Checks
+    each kernel's launches on the path: rmsnorm on both, flash (its
+    tensor-core body) on seamless's decoder prefills and never on
+    paligemma (prefix-LM attention runs ``sdpa``, as in the reference),
+    uct_select on seamless's searches."""
+    import gc
+    t_phase = time.perf_counter()
+    models, launches, bodies = {}, {}, {}
+    for arch in VE_MODELS:
+        t_model = time.perf_counter()
+        mcfg, params, info = family_model(torch, arch, {"use_flash": True})
+        toks, extras = ve_inputs(torch, mcfg)
+        info["logits_vs_plain"] = family_logits_vs_plain(torch, params, mcfg,
+                                                         extras)
+        torch.cuda.reset_peak_memory_stats()
+        counters = zero_lm_counters()
+        out, prefill_ms, step_ms, cache, tok, pos = ve_greedy(
+            torch, params, mcfg, toks, extras)
+        ln, bd = read_lm_counters(counters)
+        info["peak_memory_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        again = ve_greedy(torch, params, mcfg, toks, extras)[0]
+        check(again == out, f"{arch}: greedy tokens differ run to run")
+        info.update(
+            tokens_out=out, prefill_ms=prefill_ms,
+            prefill_positions=pos + 1 - VE_DECODE_STEPS,
+            decode_step_ms=step_ms, decode_rows=VE_ROWS,
+            decode_tokens_per_s=VE_ROWS * 1e3 / step_ms,
+            tokens_per_s=VE_ROWS * VE_DECODE_STEPS * 1e3 / (
+                prefill_ms + VE_DECODE_STEPS * step_ms),
+            profiled_decode_step=profiled_decode_step(torch, params, mcfg,
+                                                      tok, pos, cache))
+        del cache
+        if mcfg.family == "vlm":
+            info["search_refused"] = ve_vlm_search_refused(torch, params,
+                                                           mcfg, toks, extras)
+            check(ln["flash_attention"] == 0,
+                  f"{arch}: flash launched {ln['flash_attention']} times")
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            info["mcts"], ln2, bd2 = ve_searches(torch, params, mcfg, toks,
+                                                 extras["frames"])
+            info["mcts"]["peak_memory_mb"] = \
+                torch.cuda.max_memory_allocated() / 2**20
+            check(ln2["uct_select"] > 0, f"{arch}: uct_select never launched")
+            ln, bd = add_counts(ln, ln2), add_counts(bd, bd2)
+            check(bd["tensor_cores"] > 0
+                  and bd["tensor_cores"] == ln["flash_attention"],
+                  f"{arch}: flash launches {bd}, expected the tensor-core "
+                  "body")
+            info["mcts_vs_plain"] = ve_searches_vs_plain(
+                torch, params, mcfg, toks, extras["frames"])
+        check(ln["rmsnorm"] > 0, f"{arch}: rmsnorm never launched")
+        info["launches"], info["launches_by_body"] = ln, bd
+        info["config"] = {"arch": arch, "use_flash": True, "family":
+                          mcfg.family, "layers": mcfg.n_layers,
+                          "encoder_layers": mcfg.n_enc_layers,
+                          "d_model": mcfg.d_model, "vocab": mcfg.vocab}
+        info["model_seconds"] = time.perf_counter() - t_model
+        models[arch] = info
+        launches, bodies = add_counts(launches, ln), add_counts(bodies, bd)
+        del params, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("lm_vlm_encdec",
+         config={"rows": VE_ROWS, "source_len": VE_SRC_LEN,
+                 "prompt_len": VE_PROMPT_LEN,
+                 "decode_steps": VE_DECODE_STEPS, "greedy": True,
+                 "search": {**LM_SEARCH, "n_playouts": VE_SEARCH_PLAYOUTS}},
+         models=models, launches=launches, launches_by_body=bodies,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches, bodies
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
@@ -3790,16 +4148,17 @@ def main(argv=None) -> int:
     mcts_serve_launches, mcts_bodies = phase_lm_mcts_serve(torch, model)
     del model
     families_launches, families_bodies = phase_lm_families(torch)
+    ve_launches, ve_bodies = phase_lm_vlm_encdec(torch)
     flash_by_body = add_counts(flash_by_body, batch_bodies, serve_bodies,
-                               mcts_bodies, families_bodies)
+                               mcts_bodies, families_bodies, ve_bodies)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
         # Hex search, the paper's sweep, the Hex forest and game serving;
         # select_descent on Gomoku (its playout has no kernel); uct_select
-        # (the LM descent's tile),
-        # flash_attention and rmsnorm on the LM search, the batched search
-        # and the LM engines; hex_winner judges filled boards, which no
+        # (the LM descent's tile), flash_attention and rmsnorm on the LM
+        # search, the batched search, the LM engines, the families and the
+        # vlm and encdec models; hex_winner judges filled boards, which no
         # path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
@@ -3810,7 +4169,8 @@ def main(argv=None) -> int:
                    "lm_batch": batch_launches.get(r["name"], 0),
                    "lm_serve": lm_serve_launches.get(r["name"], 0),
                    "lm_mcts_serve": mcts_serve_launches.get(r["name"], 0),
-                   "lm_families": families_launches.get(r["name"], 0)}
+                   "lm_families": families_launches.get(r["name"], 0),
+                   "lm_vlm_encdec": ve_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():

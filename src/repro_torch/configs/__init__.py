@@ -1,16 +1,16 @@
 """Architecture registry: ``get_config(id)`` -> ModelConfig (+ reduced twins).
 
-Port of ``repro.configs`` for the decoder-only architectures: the dense GQA
-transformers, the MoE models (Qwen3-MoE; DeepSeek-V2 with MLA), the zamba2
-hybrid and xLSTM. The vlm and encoder-decoder architectures of the JAX
-package's registry are known by name and refused with
-``NotImplementedError`` (ROADMAP.md item A12c).
+Port of ``repro.configs``' registry: the dense GQA transformers, the MoE
+models (Qwen3-MoE; DeepSeek-V2 with MLA), the zamba2 hybrid, xLSTM, the
+vlm (PaliGemma) and the encoder-decoder (SeamlessM4T). The JAX package's
+``configs.shapes`` belongs to ROADMAP.md item A13b.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_v2_236b, llama3_8b, qwen3_moe_235b,
-                                 qwen15_05b, qwen15_4b, smollm_135m,
+from repro_torch.configs import (deepseek_v2_236b, llama3_8b, paligemma_3b,
+                                 qwen3_moe_235b, qwen15_05b, qwen15_4b,
+                                 seamless_m4t_medium, smollm_135m,
                                  xlstm_1p3b, zamba2_7b)
 from repro_torch.models.common import ModelConfig
 
@@ -23,19 +23,14 @@ _REGISTRY: dict[str, ModelConfig] = {
     "deepseek-v2-236b": deepseek_v2_236b.CONFIG,
     "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
     "xlstm-1.3b": xlstm_1p3b.CONFIG,
+    "paligemma-3b": paligemma_3b.CONFIG,
+    "seamless-m4t-medium": seamless_m4t_medium.CONFIG,
 }
-# in the JAX package's registry, not ported yet (the vlm and encdec families)
-_NOT_PORTED = ("paligemma-3b", "seamless-m4t-medium")
 
 ARCHS: tuple[str, ...] = tuple(_REGISTRY)
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r}: its family (vlm or encdec) is not ported yet "
-            "(ROADMAP.md item A12c); the port runs "
-            f"{sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -79,6 +74,10 @@ def reduced_config(name: str) -> ModelConfig:
         kw.update(n_layers=3, ssm_state=16, ssm_headdim=16, ssm_chunk=16)
     elif fam == "xlstm":
         kw.update(n_layers=2 * full.slstm_every, d_ff=0)
+    elif fam == "vlm":
+        kw.update(n_layers=2, n_patches=8, vision_width=48)
+    elif fam == "encdec":
+        kw.update(n_layers=2, n_enc_layers=2, vision_width=48)
     else:
         kw.update(n_layers=2)
     return full.replace(**kw)

@@ -95,7 +95,10 @@ def model_config_from_dict(d: dict) -> ModelConfig:
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> TransformerLM:
     """A ``TransformerLM`` from the JAX package's parameter tree given as
-    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
+    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``):
+    a decoder-only family's (``stage_i``, ``shared``, the vlm family's
+    ``vision_proj``) or the encoder-decoder's (``embed``, ``frontend``,
+    ``enc``, ``enc_norm``, ``dec``, ``final_norm``).
 
     Every leaf the config's spec tree has must be there, with its shape;
     nothing else may be. Arrays are copied and cast to ``cfg.param_dtype``

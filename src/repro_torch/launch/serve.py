@@ -19,7 +19,11 @@ the JAX launcher requires.
 
 The flags and the printed lines are the JAX launcher's, plus ``--device``
 (default ``cuda``); ``--device cpu`` runs the same traffic with the
-kernels' plain PyTorch versions.
+kernels' plain PyTorch versions. The vlm and encoder-decoder archs
+(``paligemma-3b``, ``seamless-m4t-medium``) are refused before any model is
+built: their prefill needs stub patch or frame embeddings, which this
+launcher's synthetic traffic does not carry (the JAX launcher fails on
+them too).
 """
 
 from __future__ import annotations
@@ -125,6 +129,16 @@ def main(argv=None):
         args.tracer, args.registry = make_observers(args)
         serve_games(args)
         return
+    from repro_torch import configs
+    family = configs.get_config(args.arch).family
+    needs = {"vlm": "patches", "encdec": "frames"}.get(family)
+    if needs:
+        # the engines serve token prompts only, as in the JAX launcher
+        # (which fails on these archs once the model is built)
+        p.error(f"--arch {args.arch}: the {family} family needs a `{needs}` "
+                "input, which the launcher's synthetic token traffic does "
+                "not carry; call models.api.prefill or "
+                "serve.mcts_decode.mcts_decode_search with it")
     args.scheduler = args.scheduler or "lockstep"
     args.tracer, args.registry = make_observers(args)
     serve_lm(args)

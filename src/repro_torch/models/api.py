@@ -1,61 +1,94 @@
-"""Family-dispatched model API (port of ``repro.models.api`` for the
-decoder-only families: dense, MoE with or without MLA, Mamba-2, the zamba2
-hybrid and xLSTM):
+"""Family-dispatched model API (port of ``repro.models.api``): one surface
+over the decoder-only families (dense, vlm, MoE with or without MLA,
+Mamba-2, the zamba2 hybrid, xLSTM: ``transformer.py``) and the
+encoder-decoder family (``encdec.py``):
 
     specs(cfg)                              -> param Spec tree
-    cache_specs(cfg, batch, max_len)        -> {stage: {...: (shape, dtype, axes)}}
-    init_cache(cfg, batch, max_len, device) -> zeroed cache tree
+    cache_specs(cfg, batch, max_len)        -> {...: (shape, dtype, axes)}
+    init_cache(cfg, batch, max_len, device=) -> zeroed cache tree
     prefill(params, cfg, batch, max_len)    -> (logits, cache)
     decode(params, cfg, token, pos, cache)  -> (logits, cache)   (cache in place)
     init_params(cfg, seed, device)          -> TransformerLM
 
+``prefill``'s batch holds ``tokens`` and, by family, the stub frontends'
+inputs: ``patches`` (vlm: (B, n_patches, vision_width)) or ``frames``
+(encdec: (B, S_src, frame_dim)); any other key is refused.
+
 The cache trees nest as deep as the family's stages: ``{stage: {k, v}}``
 for attention, ``{stage: {"mamba": {state, conv}, "attn": {k, v}}}`` for a
 zamba2 segment, ``{stage: {"mlstm": {C, n, m, conv}, "slstm": {h, c, n, m,
-conv}}}`` for an xLSTM segment. The vlm and encoder-decoder families raise
-``NotImplementedError`` (``models.common.check_in_slice``; ROADMAP.md item
-A12c).
+conv}}}`` for an xLSTM segment, ``{"dec": {k, v, xk, xv}}`` for the
+encoder-decoder (``xk``/``xv`` the memory's cross K/V, S_src long).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ModelConfig, init_tree, spec_with_dtype,
                                        tree_leaves, tree_map)
 from repro_torch.models.common import n_params as _n_params
 
+# encoder memory length of the enc-dec decode shapes when the caller gives
+# none (DESIGN.md §5's reading of the enc-dec decode cells)
+ENCDEC_SRC_LEN = 4096
+
 
 def specs(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return ed.encdec_specs(cfg)
     return tfm.lm_specs(cfg)
 
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+def _src_len(max_len: int, src_len: int | None) -> int:
+    return src_len or min(ENCDEC_SRC_LEN, max_len)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                src_len: int | None = None):
+    if cfg.family == "encdec":
+        return ed.encdec_cache_specs(cfg, batch, max_len,
+                                     _src_len(max_len, src_len))
     return tfm.lm_cache_specs(cfg, batch, max_len)
 
 
-def cache_batch_axes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+def cache_batch_axes(cfg: ModelConfig, batch: int, max_len: int,
+                     src_len: int | None = None) -> dict:
     """The cache tree's shape, each leaf its batch-axis index (leaves are
     layer-stacked: 1 for a stage's leaves, 2 for a segment's inner ones)."""
     return tree_map(lambda t: t[2].index("batch"),
-                    cache_specs(cfg, batch, max_len))
+                    cache_specs(cfg, batch, max_len, src_len))
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               src_len: int | None = None, device=None):
+    if cfg.family == "encdec":
+        return ed.encdec_init_cache(cfg, batch, max_len,
+                                    _src_len(max_len, src_len), device=device)
     return tfm.lm_init_cache(cfg, batch, max_len, device=device)
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):
-    extra = set(batch) - {"tokens"}
-    if extra:
-        raise NotImplementedError(
-            f"prefill batch keys {sorted(extra)}: the vlm/encdec inputs are "
-            "not ported (ROADMAP.md item A12c)")
-    return tfm.lm_prefill(params, cfg, batch["tokens"], max_len)
+    extra = "frames" if cfg.family == "encdec" else "patches"
+    unknown = set(batch) - {"tokens", extra}
+    if unknown:
+        raise ValueError(f"prefill batch keys {sorted(unknown)}: the "
+                         f"{cfg.family} family takes 'tokens' and '{extra}'")
+    if cfg.family == "encdec":
+        if "frames" not in batch:
+            raise ValueError("the encdec family needs a `frames` input (stub "
+                             "frame embeddings (B, S_src, frame_dim))")
+        return ed.encdec_prefill(params, cfg, batch["frames"],
+                                 batch["tokens"], max_len)
+    return tfm.lm_prefill(params, cfg, batch["tokens"], max_len,
+                          patches=batch.get("patches"))
 
 
 def decode(params, cfg: ModelConfig, token, pos, cache):
+    if cfg.family == "encdec":
+        return ed.encdec_decode(params, cfg, token, pos, cache)
     return tfm.lm_decode(params, cfg, token, pos, cache)
 
 

@@ -1,20 +1,24 @@
 """Attention (port of ``repro.models.attention``): GQA projections with
-optional bias, masks, the einsum ``sdpa``, the flash dispatch, the KV-cache
-prefill/decode, and DeepSeek-V2's multi-head latent attention (MLA), whose
-cache holds the latent ``(c_kv, k_pe)``.
+optional bias, the causal and prefix-LM masks, the einsum ``sdpa`` and its
+q-chunked twin ``sdpa_chunked``, the dispatch ``run_attention``, the
+prefix-LM attention of the vlm family, the KV-cache prefill/decode,
+DeepSeek-V2's multi-head latent attention (MLA), whose cache holds the
+latent ``(c_kv, k_pe)``, and the encoder-decoder's cross-attention.
 
-``run_attention`` sends prefill to ``kernels.ops.flash_attention`` (the
-flash kernel on the card) when ``cfg.use_flash`` is set, as the JAX package
-sends it to its Pallas kernel; decode always uses ``sdpa``, plain PyTorch
-matmuls, as the JAX package computes it outside any kernel. ``sdpa`` rounds
-where the reference does: q is scaled in q's dtype before the product,
-scores are float32, probabilities are cast back to q's dtype before the
-product with v.
+``run_attention`` follows the reference's order: the flash kernel
+(``kernels.ops.flash_attention``, the hand-written kernel on the card) when
+``cfg.use_flash`` is set and there is no prefix, as the JAX package sends it
+to its Pallas kernel; else ``sdpa_chunked`` when ``cfg.attn_chunk`` divides
+the sequence into more than one chunk; else ``sdpa`` under the causal or
+prefix-LM mask. Decode, the encoder and cross-attention always use
+``sdpa``, plain PyTorch matmuls, as the JAX package computes them outside
+any kernel. ``sdpa`` rounds where the reference does: q is scaled in q's
+dtype before the product, scores are float32, probabilities are cast back
+to q's dtype before the product with v.
 
 MLA's v head dim differs from its q/k head dim, which the flash kernel does
 not take: with ``use_flash`` it raises (``kernels.ops.flash_attention``), as
-the reference's Pallas wrapper fails on it. Cross and prefix-LM attention
-and the q-chunked ``sdpa_chunked`` are not ported (ROADMAP.md item A12c).
+the reference's Pallas wrapper fails on it.
 """
 
 from __future__ import annotations
@@ -33,6 +37,13 @@ NEG = -1e30
 # ------------------------------------------------------------------- masks ----
 def causal_mask(S: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((S, S), dtype=torch.bool, device=device))
+
+
+def prefix_lm_mask(S: int, prefix_len: int, device=None) -> torch.Tensor:
+    """Bidirectional over the first ``prefix_len`` positions, causal after
+    (PaliGemma's image+prompt prefix)."""
+    pre = torch.arange(S, device=device) < prefix_len
+    return causal_mask(S, device) | (pre[None, :] & pre[:, None])
 
 
 # --------------------------------------------------------------- GQA attn ----
@@ -96,16 +107,43 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
-def run_attention(cfg: ModelConfig, q, k, v, scale: float | None = None):
-    """Dispatch: the flash kernel when ``cfg.use_flash``, else ``sdpa``
-    under a causal mask. (The JAX package's prefix-LM and q-chunked
-    branches are not ported: ROADMAP.md item A12c.)"""
-    if cfg.attn_chunk:
-        raise NotImplementedError(
-            "attn_chunk > 0: sdpa_chunked is not ported (ROADMAP.md item A12c)")
-    if cfg.use_flash:
+def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 chunk: int, prefix_len: int = 0,
+                 scale: float | None = None) -> torch.Tensor:
+    """Causal / prefix-LM attention, one query chunk at a time: the live
+    score tensor is (B, H, chunk, S), and each chunk's mask is built from
+    positions (never an (S, S) mask). Each chunk is ``sdpa`` on its rows,
+    as the reference's scan computes it."""
+    B, S, H, _ = q.shape
+    if S % chunk:
+        raise ValueError(f"sdpa_chunked: S = {S} is not a multiple of "
+                         f"chunk = {chunk}")
+    kpos = torch.arange(S, dtype=torch.int32, device=q.device)
+    outs = []
+    for i in range(S // chunk):
+        qpos = i * chunk + torch.arange(chunk, dtype=torch.int32,
+                                        device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        mask = mask | ((qpos[:, None] < prefix_len)
+                       & (kpos[None, :] < prefix_len))
+        outs.append(sdpa(q[:, i * chunk:(i + 1) * chunk], k, v, mask, scale))
+    return torch.cat(outs, dim=1)
+
+
+def run_attention(cfg: ModelConfig, q, k, v, prefix_len: int = 0,
+                  scale: float | None = None):
+    """Dispatch, in the reference's order: the flash kernel when
+    ``cfg.use_flash`` and there is no prefix; else ``sdpa_chunked`` when
+    ``cfg.attn_chunk`` splits S into more than one chunk; else ``sdpa``
+    under the causal (no prefix) or prefix-LM mask."""
+    S = q.shape[1]
+    if cfg.use_flash and prefix_len == 0:
         return ops.flash_attention(q, k, v, causal=True, scale=scale)
-    return sdpa(q, k, v, causal_mask(q.shape[1], q.device), scale)
+    if cfg.attn_chunk and S % cfg.attn_chunk == 0 and S > cfg.attn_chunk:
+        return sdpa_chunked(q, k, v, cfg.attn_chunk, prefix_len, scale)
+    mask = (causal_mask(S, q.device) if prefix_len == 0
+            else prefix_lm_mask(S, prefix_len, q.device))
+    return sdpa(q, k, v, mask, scale)
 
 
 def _positions(S: int, device) -> torch.Tensor:
@@ -123,13 +161,25 @@ def gqa_attention(params, cfg: ModelConfig, x: torch.Tensor,
     return _out_proj(out, params["wo"])
 
 
+def gqa_prefix_attention(params, cfg: ModelConfig, x: torch.Tensor,
+                         prefix_len: int) -> torch.Tensor:
+    """Prefix-LM attention (PaliGemma): bidirectional over the first
+    ``prefix_len`` positions, causal after."""
+    q, k, v = _qkv(params, cfg, x, _positions(x.shape[1], x.device))
+    return _out_proj(run_attention(cfg, q, k, v, prefix_len=prefix_len),
+                     params["wo"])
+
+
 # ------------------------------------------------------------ GQA + cache ----
 def gqa_prefill(params, cfg: ModelConfig, x: torch.Tensor,
-                mask: torch.Tensor | None = None):
-    """Returns (attn_out, (k, v)) for the processed prefix."""
+                mask: torch.Tensor | None = None, prefix_len: int = 0):
+    """Returns (attn_out, (k, v)) for the processed prefix; ``prefix_len``
+    rides through ``run_attention`` (the q-chunked path builds the
+    prefix-LM mask per chunk)."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x, _positions(S, x.device))
-    out = run_attention(cfg, q, k, v) if mask is None else sdpa(q, k, v, mask)
+    out = (run_attention(cfg, q, k, v, prefix_len=prefix_len)
+           if mask is None else sdpa(q, k, v, mask))
     return _out_proj(out, params["wo"]), (k, v)
 
 
@@ -271,3 +321,29 @@ def mla_decode(params, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos):
     valid = torch.arange(Smax, device=x.device)[None, :] <= pos_b
     out = sdpa(q, k, v, valid[:, None, :], scale)
     return _out_proj(out, params["wo"]), (c_cache, pe_cache)
+
+
+# ------------------------------------------------------------- cross attn ----
+def cross_specs(cfg: ModelConfig) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    return {
+        "wq": Spec((d, H, hd), ("embed", "heads", None), 1.0 / math.sqrt(d)),
+        "wk": Spec((d, H, hd), ("embed", "heads", None), 1.0 / math.sqrt(d)),
+        "wv": Spec((d, H, hd), ("embed", "heads", None), 1.0 / math.sqrt(d)),
+        "wo": Spec((H, hd, d), ("heads", None, "embed"), 1.0 / math.sqrt(H * hd)),
+    }
+
+
+def cross_attention(params, cfg: ModelConfig, x: torch.Tensor,
+                    memory: torch.Tensor,
+                    mem_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, Sq, d) queries over encoder memory (B, Skv, d); no RoPE, scale
+    1/sqrt(hd); ``mem_mask`` (B, Skv) bool, True = attend."""
+    q = _proj(x, params["wq"])
+    k = _proj(memory, params["wk"])
+    v = _proj(memory, params["wv"])
+    mask = None
+    if mem_mask is not None:
+        mask = mem_mask[:, None, :].expand(x.shape[0], x.shape[1],
+                                           memory.shape[1])
+    return _out_proj(sdpa(q, k, v, mask), params["wo"])

@@ -1,5 +1,7 @@
 """Model configuration and parameter-tree machinery (port of
-``repro.models.common``, the parts the decoder-only families need).
+``repro.models.common``; the sharding annotations' helpers, ``tree_axes``
+and ``tree_specs``, and ``maybe_scan`` belong to training, ROADMAP.md item
+A13a).
 
 Parameters are nested dicts of tensors, keyed as in the JAX package, with a
 parallel tree of ``Spec`` leaves (shape, logical axes, init scale). The
@@ -89,7 +91,7 @@ class ModelConfig:
     scan_layers: bool = True
     logits_chunk: int = 0
     use_flash: bool = False        # the flash-attention kernel in prefill
-    attn_chunk: int = 0            # q-chunked sdpa: not ported (A12c)
+    attn_chunk: int = 0            # 0 -> sdpa; else q-chunked sdpa_chunked
     mlstm_chunk: int = 1024
     unroll_loops: bool = False
 
@@ -107,19 +109,6 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
-
-
-def check_in_slice(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet: the vlm and encdec families
-    and the q-chunked ``sdpa_chunked`` (``attn_chunk``)."""
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the vlm and encdec families are not "
-            "ported (ROADMAP.md item A12c)")
-    if cfg.attn_chunk:
-        raise NotImplementedError(
-            "attn_chunk > 0: the q-chunked sdpa is not ported "
-            "(ROADMAP.md item A12c)")
 
 
 # ------------------------------------------------------------ param trees ----

@@ -1,5 +1,6 @@
-"""Shared neural building blocks: norm, RoPE, MLP, embeddings (port of the
-parts of ``repro.models.layers`` the dense decoder needs).
+"""Shared neural building blocks: norms, RoPE, sinusoidal positions, MLP,
+embeddings (port of ``repro.models.layers`` without the losses, which are
+training's: ROADMAP.md item A13a).
 
 Each function rounds where its JAX twin rounds: ``rmsnorm`` normalises in
 float32 and casts before the weight multiply (the ``"model"`` order of the
@@ -10,6 +11,7 @@ in the activations' dtype.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -23,6 +25,19 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     w.astype(dt)``. On the card this is the rmsnorm kernel (its ``"model"``
     order), which takes a contiguous x; on the CPU its plain version."""
     return ops.rmsnorm(x.contiguous(), w, eps=eps, order="model")
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """LayerNorm with float32 statistics (biased variance), cast to x's
+    dtype before the affine, as the reference rounds. No served path of
+    either package calls it."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * w.to(dt) + b.to(dt)
 
 
 # -------------------------------------------------------------------- rope ----
@@ -51,6 +66,17 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., S) positions -> (..., S, d) float32 sinusoidal embeddings,
+    sines then cosines. No served path of either package calls it."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=pos.device) / half)
+    ang = pos[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------- mlp ----

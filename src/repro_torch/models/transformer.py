@@ -1,6 +1,9 @@
 """Decoder-only LM (port of ``repro.models.transformer``): layer plan,
 blocks (dense / MoE / MLA attention, Mamba-2, mLSTM, the xLSTM and zamba2
-segments), their forward / prefill / decode, and the explicit cache trees.
+segments), their forward / prefill / decode, the explicit cache trees, and
+the vlm family's prefix: gemma's embedding scale, the ``vision_proj``
+projection of stub patch embeddings, prefix-LM attention over
+[patches | prompt].
 
 As in the JAX package, a model is a list of stages, each ``count`` copies of
 one block kind with its parameters stacked along a leading ``layers`` axis;
@@ -30,7 +33,7 @@ from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.common import (ModelConfig, check_in_slice, norm_spec,
+from repro_torch.models.common import (ModelConfig, dense_spec, norm_spec,
                                        store_layer, tree_leaves, tree_map,
                                        tree_set, unstack)
 from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
@@ -40,9 +43,8 @@ from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
 # ------------------------------------------------------------- layer plan ----
 def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
     """[(kind, count)] stages; each stage is one homogeneous stack."""
-    check_in_slice(cfg)
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         return [("dense", cfg.n_layers)]
     if fam == "moe":
         plan = []
@@ -93,12 +95,14 @@ def dense_block_specs(cfg: ModelConfig, use_moe: bool = False) -> dict:
     return s
 
 
-def dense_block_fwd(p, cfg: ModelConfig, x):
+def dense_block_fwd(p, cfg: ModelConfig, x, prefix_len: int = 0):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         x = x + attn.mla_attention(p["attn"], cfg, h)
-    else:
+    elif prefix_len == 0:
         x = x + attn.gqa_attention(p["attn"], cfg, h)
+    else:
+        x = x + attn.gqa_prefix_attention(p["attn"], cfg, h, prefix_len)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn(p, cfg, h)
 
@@ -114,8 +118,18 @@ def dense_block_cache_specs(cfg: ModelConfig, batch: int, max_len: int, dtype):
     return {"k": (shape, dtype, axes), "v": (shape, dtype, axes)}
 
 
+def check_fits(S: int, max_len: int) -> None:
+    """A prefill of S positions must fit its max_len cache: above it raises
+    ``ValueError``, as the reference's ``jnp.pad`` in ``_pad_len`` does.
+    The prefill entry points check before any work."""
+    if S > max_len:
+        raise ValueError(f"a prefill of {S} positions does not fit a cache "
+                         f"of max_len {max_len}")
+
+
 def _pad_len(x: torch.Tensor, max_len: int) -> torch.Tensor:
-    """Pad a (B, S, ...) prefill cache out to the max_len buffer."""
+    """Pad a (B, S, ...) prefill cache out to the max_len buffer (S <=
+    max_len: ``check_fits`` ran first)."""
     S = x.shape[1]
     if S == max_len:
         return x
@@ -124,14 +138,15 @@ def _pad_len(x: torch.Tensor, max_len: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
-def dense_block_prefill(p, cfg: ModelConfig, x, max_len: int):
+def dense_block_prefill(p, cfg: ModelConfig, x, max_len: int,
+                        prefix_len: int = 0):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         a, (c_kv, k_pe) = attn.mla_prefill(p["attn"], cfg, h)
         cache = {"c_kv": _pad_len(c_kv, max_len),
                  "k_pe": _pad_len(k_pe, max_len)}
     else:
-        a, (k, v) = attn.gqa_prefill(p["attn"], cfg, h)
+        a, (k, v) = attn.gqa_prefill(p["attn"], cfg, h, prefix_len=prefix_len)
         cache = {"k": _pad_len(k, max_len), "v": _pad_len(v, max_len)}
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -258,6 +273,9 @@ def lm_specs(cfg: ModelConfig) -> dict:
         p[f"stage_{i}"] = _stack_specs(_BLOCKS[kind]["specs"](cfg), count)
     if cfg.family == "hybrid":
         p["shared"] = _stack_specs(dense_block_specs(cfg), cfg.n_shared_blocks)
+    if cfg.family == "vlm":
+        p["vision_proj"] = dense_spec(cfg.vision_width, cfg.d_model,
+                                      ("embed", None))
     return p
 
 
@@ -285,8 +303,9 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 class TransformerLM(nn.Module):
     """The parameter tree as an ``nn.Module``: ``state_dict`` keys are the
     JAX tree paths joined by ``.``, and ``tree()`` gives the nested dict of
-    tensors the model functions take. Parameters are inference weights
-    (``requires_grad=False``): training is not ported (ROADMAP.md A13)."""
+    tensors the model functions take. It holds the encoder-decoder family's
+    tree (``models.encdec``) as well. Parameters are inference weights
+    (``requires_grad=False``): training is not ported (ROADMAP.md A13a)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -327,7 +346,11 @@ def _stage_views(kind: str, tree: dict, count: int, cfg: ModelConfig) -> list:
 
 def _layer_views(tree: dict, cfg: ModelConfig) -> tuple[list, list | None]:
     """(per stage, per layer: the layer's parameters as views into the
-    stacked tensors; the hybrid family's shared blocks as views, or None)."""
+    stacked tensors; the hybrid family's shared blocks as views, or None).
+    For the encoder-decoder family: (the encoder's layers, the decoder's)."""
+    if cfg.family == "encdec":
+        return (unstack(tree["enc"], cfg.n_enc_layers),
+                unstack(tree["dec"], cfg.n_layers))
     stages = [_stage_views(kind, tree[f"stage_{s}"], count, cfg)
               for s, (kind, count) in enumerate(layer_plan(cfg))]
     shared = (unstack(tree["shared"], cfg.n_shared_blocks)
@@ -351,24 +374,65 @@ def kv_len(cache: dict) -> int | None:
 
 
 # ----------------------------------------------------------------- forward ----
-def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Tokens (B, S) -> final-norm hidden states (B, S, d)."""
-    (stages, shared), params = _layers(params, cfg), as_tree(params)
+def embed_scale(cfg: ModelConfig, dtype: torch.dtype) -> float:
+    """gemma's embedding scale sqrt(d_model), rounded to the activations'
+    dtype first as the reference rounds it (45.25 in bf16 at d = 2048, not
+    45.2548): exact as a Python float, so the product rounds once."""
+    return float(torch.tensor(cfg.d_model ** 0.5, dtype=dtype))
+
+
+def _embed_prefix(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  patches: torch.Tensor | None):
+    """(embedded inputs (B, S, d), prefix length): the tokens' embeddings;
+    for the vlm family scaled by ``embed_scale`` and preceded by the
+    patches' projection, [vis | text], the patches being the prefix."""
     x = embed(params["embed"], tokens, cfg)
+    if cfg.family != "vlm":
+        return x, 0
+    if patches is None:
+        raise ValueError("the vlm family needs a `patches` input (stub patch "
+                         "embeddings (B, n_patches, vision_width))")
+    x = x * embed_scale(cfg, x.dtype)
+    vis = patches.to(cfg.cdtype) @ params["vision_proj"].to(cfg.cdtype)
+    return torch.cat([vis, x], dim=1), patches.shape[1]
+
+
+def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+              patches: torch.Tensor | None = None) -> torch.Tensor:
+    """Tokens (B, S) (after the vlm family's ``patches`` (B, n_patches,
+    vision_width)) -> final-norm hidden states (B, [n_patches +] S, d)."""
+    (stages, shared), params = _layers(params, cfg), as_tree(params)
+    x, prefix_len = _embed_prefix(params, cfg, tokens, patches)
+    kw = {"prefix_len": prefix_len} if prefix_len else {}
     for (kind, _), stage in zip(layer_plan(cfg), stages):
         if kind == "zamba_seg":
             x = hybrid_mod.zamba_seg_scan(stage, cfg, x, shared)
             continue
         fwd = _BLOCKS[kind]["fwd"]
         for lp in stage:
-            x = fwd(lp, cfg, x)
+            x = fwd(lp, cfg, x, **kw)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
-def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
-    """Process a prompt; return (last-position logits (B, 1, V), cache)."""
+def _padded_to_max_len(cfg: ModelConfig) -> bool:
+    """Whether the family's prefill pads attention caches to ``max_len``."""
+    return any(kind in ("dense", "moe", "zamba_seg")
+               for kind, _ in layer_plan(cfg))
+
+
+def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
+               patches: torch.Tensor | None = None):
+    """Process a prompt (after the vlm family's ``patches``); return
+    (last-position logits (B, 1, V), cache). A prefill longer than an
+    attention cache's ``max_len`` raises ``ValueError`` before any work
+    (``check_fits``)."""
+    if _padded_to_max_len(cfg):
+        check_fits(tokens.shape[1] + (patches.shape[1] if cfg.family == "vlm"
+                                      and patches is not None else 0),
+                   max_len)
     (stages, shared), params = _layers(params, cfg), as_tree(params)
-    x = embed(params["embed"], tokens, cfg)
+    x, prefix_len = _embed_prefix(params, cfg, tokens, patches)
+    kw = {"prefix_len": prefix_len} if prefix_len else {}
     caches = {}
     for i, ((kind, _), stage) in enumerate(zip(layer_plan(cfg), stages)):
         if kind == "zamba_seg":
@@ -378,7 +442,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
         pf = _BLOCKS[kind]["prefill"]
         buf = None
         for j, lp in enumerate(stage):
-            x, c = pf(lp, cfg, x, max_len)
+            x, c = pf(lp, cfg, x, max_len, **kw)
             buf = store_layer(buf, j, len(stage), c)
         caches[f"stage_{i}"] = buf
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -390,12 +454,15 @@ def lm_decode(params, cfg: ModelConfig, token: torch.Tensor, pos, cache: dict):
     the same position) or a (B,) tensor. The cache is written in place and
     returned with the logits (B, 1, V). Attention positions are
     range-checked once for the whole step (one host read for a tensor), not
-    per layer; the recurrent blocks ignore ``pos``, as in the reference."""
+    per layer; the recurrent blocks ignore ``pos``, as in the reference.
+    The vlm family's token embeddings are scaled as in its prefill."""
     (stages, shared), params = _layers(params, cfg), as_tree(params)
     Smax = kv_len(cache)
     if Smax is not None:
         attn.check_positions(pos, Smax)
     x = embed(params["embed"], token, cfg)
+    if cfg.family == "vlm":
+        x = x * embed_scale(cfg, x.dtype)
     for i, ((kind, _), stage) in enumerate(zip(layer_plan(cfg), stages)):
         sc = cache[f"stage_{i}"]
         if kind == "zamba_seg":

@@ -352,11 +352,13 @@ def _decode_partings(before: tuple[Tree, Tree], cfg, a: dict, b: dict,
 
 
 def step_decode_search(params, mcfg, cfg, prompt: torch.Tensor,
-                       key: torch.Tensor, other) -> dict:
-    """Run ``mcts_decode_search(params, mcfg, prompt, cfg, key)`` twice side
-    by side, one sync iteration at a time from the same keys: run a as
-    called, run b inside the context ``other()`` (``ops.plain_versions`` to
-    hold the kernels against their plain versions).
+                       key: torch.Tensor, other,
+                       batch_extras: dict | None = None) -> dict:
+    """Run ``mcts_decode_search(params, mcfg, prompt, cfg, key,
+    batch_extras)`` twice side by side, one sync iteration at a time from
+    the same keys: run a as called, run b inside the context ``other()``
+    (``ops.plain_versions`` to hold the kernels against their plain
+    versions).
 
     Measured in every iteration: the largest difference between the two
     runs' root logits (prefill), leaf logits (replay decode) and rollout
@@ -375,13 +377,16 @@ def step_decode_search(params, mcfg, cfg, prompt: torch.Tensor,
     visits, else None); ``best_tokens`` of the two runs' final trees.
     """
     from repro_torch.models import api
+    from repro_torch.serve import mcts_decode as md
     prompt = prompt.to(device=key.device, dtype=torch.int32).reshape(-1)
     P, W = int(prompt.shape[0]), cfg.n_workers
     max_len = P + cfg.max_depth + cfg.rollout_len + 1
+    extras = md.tile_extras(batch_extras, W, key.device)
 
     def start():
         logits, cache = api.prefill(
-            params, mcfg, {"tokens": prompt[None, :].repeat(W, 1)}, max_len)
+            params, mcfg, {"tokens": prompt[None, :].repeat(W, 1), **extras},
+            max_len)
         return (init_tree(cfg.tree_cap, cfg.branch, 1, device=key.device),
                 cache, logits[0, 0].to(torch.float32))
 
@@ -391,12 +396,13 @@ def step_decode_search(params, mcfg, cfg, prompt: torch.Tensor,
 
 def step_decode_search_batch(params, mcfg, cfg, prompts: torch.Tensor,
                              key: torch.Tensor, other, *, prompt_lens=None,
-                             request_mask=None) -> dict:
+                             request_mask=None,
+                             batch_extras: dict | None = None) -> dict:
     """``step_decode_search`` for ``mcts_decode_search_batch(params, mcfg,
-    prompts, cfg, key, prompt_lens=..., request_mask=...)``: the B-member
-    forest stepped both ways, one sync iteration at a time. Each member's
-    decisions are held as a single tree's are (every parting carries its
-    ``member``); ``best_tokens`` is a pair of (B,) lists."""
+    prompts, cfg, key, prompt_lens=..., request_mask=..., batch_extras=...)``:
+    the B-member forest stepped both ways, one sync iteration at a time.
+    Each member's decisions are held as a single tree's are (every parting
+    carries its ``member``); ``best_tokens`` is a pair of (B,) lists."""
     from repro_torch.core.root_parallel import fold_member_task_keys
     from repro_torch.core.tree import init_forest
     from repro_torch.serve import mcts_decode as md
@@ -411,7 +417,7 @@ def step_decode_search_batch(params, mcfg, cfg, prompts: torch.Tensor,
 
     def start():
         root, cache = md.prefill_batch(params, mcfg, prompts, lens,
-                                       cfg.n_workers, max_len)
+                                       cfg.n_workers, max_len, batch_extras)
         return init_forest(B, cfg.tree_cap, cfg.branch, 1, device=dev), \
             cache, root
 

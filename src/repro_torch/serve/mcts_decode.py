@@ -37,8 +37,18 @@ member-local, and the tree ops reach a member's rows through
 for all members. The KV cache is one flat batch of B·W rows — lane w of
 request b is row b·W + w, as the reference's ``jnp.repeat(prompts, W,
 axis=0)`` tiles it — and each row decodes at its own request's positions
-(a (B·W,) position tensor, checked once per decode step). ``batch_extras``
-(vlm patches) belongs to the non-dense families (ROADMAP.md item A12).
+(a (B·W,) position tensor, checked once per decode step).
+
+``batch_extras`` carries the stub frontends' inputs of the vlm and
+encoder-decoder families (``{"patches": ...}``, ``{"frames": ...}``) into
+the prefill, laid out as the reference lays them: the single search tiles
+them over its W lanes (``jnp.tile``: the extras' rows repeat as a block),
+the batched search repeats each request's row W times (``jnp.repeat(...,
+axis=0)``: lane w of request b is row b·W + w). As in the reference, the
+search's positions count the prompt only, not a vlm's patch prefix:
+replay writes from ``prompt_len`` into the cached [patches | prompt] rows,
+and a prefix that does not fit ``max_len`` raises ``ValueError`` (the
+reference's prefill raises in ``_pad_len``), before any kernel launch.
 """
 
 from __future__ import annotations
@@ -374,26 +384,35 @@ def run_chunk_batch(forest: Tree, params, mcfg: ModelConfig,
 
 
 # ------------------------------------------------------------------ driver ----
-def _check_in_slice(cfg: MCTSDecodeConfig, batch_extras) -> None:
-    if batch_extras:
-        raise NotImplementedError(
-            "batch_extras: the vlm prefix inputs are not ported (ROADMAP.md "
-            "item A12)")
+def _check_descent(cfg: MCTSDecodeConfig) -> None:
     if cfg.descent not in ("batched", "scalar"):
         raise ValueError(f"unknown descent {cfg.descent!r}")
+
+
+def tile_extras(batch_extras: dict | None, n_workers: int, device) -> dict:
+    """The single search's prefill inputs besides the tokens: each of
+    ``batch_extras`` on ``device``, its rows repeated as a block
+    ``n_workers`` times (``jnp.tile``)."""
+    out = {}
+    for k, v in (batch_extras or {}).items():
+        v = torch.as_tensor(v).to(device)
+        out[k] = v.repeat(n_workers, *(1,) * (v.dim() - 1))
+    return out
 
 
 def mcts_decode_search(params, mcfg: ModelConfig, prompt, cfg: MCTSDecodeConfig,
                        key: torch.Tensor, batch_extras: dict | None = None, *,
                        device=None) -> tuple[Tree, dict[str, Any]]:
-    """One GSCPM search for the best next token after ``prompt`` (1-D ids).
+    """One GSCPM search for the best next token after ``prompt`` (1-D ids);
+    ``batch_extras`` holds the vlm's ``patches`` or the encoder-decoder's
+    ``frames`` (a batch of one row, tiled over the W lanes).
 
     ``device=None`` means CUDA; ``params`` must lie on that device.
     Returns the final tree and stats; besides
     the reference's keys, the stats hold ``prefill_s`` and
     ``sync_iterations``.
     """
-    _check_in_slice(cfg, batch_extras)
+    _check_descent(cfg)
     device = torch.device("cuda") if device is None else torch.device(device)
     prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.int32)
     prompt = prompt.reshape(-1)
@@ -401,6 +420,7 @@ def mcts_decode_search(params, mcfg: ModelConfig, prompt, cfg: MCTSDecodeConfig,
     prompt_len = int(prompt.shape[0])
     max_len = prompt_len + cfg.max_depth + cfg.rollout_len + 1
     W = cfg.n_workers
+    extras = tile_extras(batch_extras, W, device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     schedule = sched.make_schedule(
         cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler)
@@ -410,7 +430,8 @@ def mcts_decode_search(params, mcfg: ModelConfig, prompt, cfg: MCTSDecodeConfig,
     t_pf = time.perf_counter()
     # every lane gets its own copy of the prompt's KV
     root_logits, cache = api.prefill(
-        params, mcfg, {"tokens": prompt[None, :].repeat(W, 1)}, max_len)
+        params, mcfg, {"tokens": prompt[None, :].repeat(W, 1), **extras},
+        max_len)
     root_logits = root_logits[0, 0].to(torch.float32)
     sync()
     prefill_s = time.perf_counter() - t_pf
@@ -455,18 +476,23 @@ def _host_vector(x, B: int, default, dtype) -> np.ndarray:
 
 
 def prefill_batch(params, mcfg: ModelConfig, prompts: torch.Tensor,
-                  lens: torch.Tensor, n_workers: int, max_len: int):
+                  lens: torch.Tensor, n_workers: int, max_len: int,
+                  batch_extras: dict | None = None):
     """The batched search's start: (root logits (B, V) float32, the B·W-row
-    cache). prompts (B, P) left-aligned on the device, lens (B,) int32.
+    cache). prompts (B, P) left-aligned on the device, lens (B,) int32,
+    ``batch_extras`` one row per request (repeated W times each).
 
     Request-major tiling: lane w of request b sits at row b·W + w. The
     root logits are a decode at each request's true last position (the
     prefill's last-column logits would read a pad token for short rows);
     the rewrite of the last real token's KV is idempotent."""
     B, W = prompts.shape[0], n_workers
+    # jnp.repeat(..., axis=0): request b's row repeated W times in place
+    extras = {k: torch.as_tensor(v).to(prompts.device).repeat_interleave(
+        W, dim=0) for k, v in (batch_extras or {}).items()}
     _, cache = api.prefill(
-        params, mcfg, {"tokens": prompts.repeat_interleave(W, dim=0)},
-        max_len)
+        params, mcfg, {"tokens": prompts.repeat_interleave(W, dim=0),
+                       **extras}, max_len)
     last_tok = prompts[torch.arange(B, device=prompts.device), lens - 1]
     logits, cache = api.decode(params, mcfg,
                                last_tok.repeat_interleave(W)[:, None],
@@ -486,6 +512,8 @@ def mcts_decode_search_batch(params, mcfg: ModelConfig, prompts,
     true length in ``prompt_lens`` (pad tail tokens are never attended:
     root logits come from a decode at each request's own last real
     position, and every later decode masks positions beyond its cursor).
+    ``batch_extras`` holds the vlm's ``patches`` or the encoder-decoder's
+    ``frames``, one row per request.
     ``request_mask`` (B,) bool masks whole requests: their lanes run dead,
     their trees stay at one node and their best token is -1 — the slot
     engine's empty-slot mechanism. Both are host values (a tensor is read
@@ -498,7 +526,7 @@ def mcts_decode_search_batch(params, mcfg: ModelConfig, prompts,
     keys plus ``prefill_s`` (the padded prefill and the root decode) and
     ``sync_iterations``.
     """
-    _check_in_slice(cfg, batch_extras)
+    _check_descent(cfg)
     device = torch.device("cuda") if device is None else torch.device(device)
     prompts = torch.as_tensor(prompts).to(device=device, dtype=torch.int32)
     if prompts.dim() == 1:
@@ -520,7 +548,7 @@ def mcts_decode_search_batch(params, mcfg: ModelConfig, prompts,
     sync()
     t_pf = time.perf_counter()
     root_logits, cache = prefill_batch(params, mcfg, prompts, lens, W,
-                                       max_len)
+                                       max_len, batch_extras)
     sync()
     prefill_s = time.perf_counter() - t_pf
 

@@ -18,7 +18,6 @@ keep that file's tolerances.
 from __future__ import annotations
 
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -491,12 +490,20 @@ def test_converter_refuses_a_misshapen_nested_leaf():
 
 
 @pytest.mark.parametrize("arch", ["paligemma-3b", "seamless-m4t-medium"])
-def test_vlm_and_encdec_are_refused_naming_a12c(arch):
-    with pytest.raises(NotImplementedError, match=re.escape("A12c")):
-        tconfigs.get_config(arch)
-    with pytest.raises(NotImplementedError, match=re.escape("A12c")):
-        tapi.specs(convert.model_config_from_dict(dataclasses.asdict(
-            jconfigs.reduced_config(arch))))
+def test_vlm_and_encdec_configs_match_reference(arch):
+    """These archs were refused until their families were ported: the
+    registry now returns the reference's configs,
+    field for field, full and reduced, and their spec trees have the
+    reference's shapes."""
+    for get in ("get_config", "reduced_config"):
+        tcfg = getattr(tconfigs, get)(arch)
+        jcfg = getattr(jconfigs, get)(arch)
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+        assert tapi.param_shapes(tcfg) == {
+            ".".join(str(k.key) for k in p): tuple(s.shape)
+            for p, s in jax.tree_util.tree_leaves_with_path(
+                japi.specs(jcfg), is_leaf=lambda x: hasattr(x, "axes"))}
+    assert arch in tconfigs.ARCHS
 
 
 def test_mla_flash_is_refused_before_any_kernel():

@@ -18,8 +18,8 @@ the JAX package on the same converted weights (the reduced twins, float32).
 - each of the four architectures is served by ``repro_torch.launch.serve``
   in lockstep, TPFIFO and search-guided modes with the JAX launcher's
   printed lines (the same requests and tokens), times aside; without
-  ``--device cpu`` it asks for CUDA; the vlm and encdec ids are refused
-  naming A12c.
+  ``--device cpu`` it asks for CUDA; the vlm and encdec ids, which the
+  JAX launcher fails on, are refused naming the input they need.
 
 Tolerances: the zamba2 and MoE twins' trees to ``WINS_RTOL`` (1e-5). The
 xLSTM twin has 16 layers, whose logits part from the reference's by up to
@@ -291,10 +291,28 @@ def test_launcher_serves_the_family_as_the_jax_launcher(arch, mode,
     assert " served 2 requests" in got
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "seamless-m4t-medium"])
-def test_launcher_refuses_the_a12c_archs_by_name(arch):
-    with pytest.raises(NotImplementedError, match=f"{arch}.*A12c"):
-        tserve.main(["--arch", arch, "--device", "cpu"])
+@pytest.mark.parametrize("arch,needs,jax_error", [
+    ("paligemma-3b", "patches", AttributeError),
+    ("seamless-m4t-medium", "frames", KeyError)])
+def test_launcher_refuses_vlm_and_encdec_naming_the_input(arch, needs,
+                                                          jax_error,
+                                                          monkeypatch,
+                                                          capsys):
+    """The JAX launcher fails on these archs (its engines prefill tokens
+    only: no patches, no frames); the port's launcher refuses them before
+    any model is built, naming the missing input, not an item of the
+    roadmap."""
+    argv = ["--arch", arch, *LAUNCH_BASE]
+    with pytest.raises(jax_error):
+        _run_jax_main(argv)
+    built = []
+    monkeypatch.setattr(tapi, "init_params", lambda *a, **kw: built.append(a))
+    with pytest.raises(SystemExit) as e:
+        tserve.main([*argv, "--device", "cpu"])
+    assert e.value.code == 2 and built == []
+    err = capsys.readouterr().err
+    assert f"--arch {arch}" in err and f"`{needs}`" in err
+    assert "A12" not in err
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b",

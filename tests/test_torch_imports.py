@@ -4,7 +4,6 @@ unless told otherwise, and it refuses by name what it has not ported yet."""
 
 import ast
 import pathlib
-import re
 import subprocess
 import sys
 
@@ -20,7 +19,6 @@ from repro_torch.core import tree as tt
 from repro_torch.launch import search as tsearch
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api as tapi
-from repro_torch.models.common import ModelConfig
 from repro_torch.serve import engine as tengine
 from repro_torch.serve import mcts_decode as tmd
 from repro_torch.serve import tpfifo as ttpfifo
@@ -383,24 +381,98 @@ def test_launcher_runs_this_slices_flags(flags, capsys):
     assert ("reused" in out) == warm
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: tapi.specs(tconfigs.reduced_config("zamba2-7b").replace(
-        attn_chunk=4)), "A12c"),
-    (lambda: tapi.specs(tconfigs.reduced_config("deepseek-v2-236b").replace(
-        attn_chunk=4)), "A12c"),
-    (lambda: tapi.specs(ModelConfig(family="moe", n_experts=4,
-                                    attn_chunk=4)), "A12c"),
-    (lambda: tapi.specs(ModelConfig(family="encdec")), "A12c"),
-    (lambda: tapi.specs(ModelConfig(use_mla=True, attn_chunk=4)), "A12c"),
-    (lambda: tapi.prefill({}, ModelConfig(), {"tokens": torch.zeros(
-        1, 2, dtype=torch.int32), "patches": torch.zeros(1)}, 4), "A12c")],
+def _jax_model(arch: str | None, **kw):
+    """(JAX config, port config) of a reduced twin or a bare ModelConfig."""
+    import dataclasses
+    from repro import configs as jconfigs
+    from repro.models.common import ModelConfig as JModelConfig
+    from repro_torch import convert
+    jcfg = (jconfigs.reduced_config(arch).replace(**kw) if arch
+            else JModelConfig(**kw))
+    return jcfg, convert.model_config_from_dict(dataclasses.asdict(jcfg))
+
+
+def _specs_equal(arch: str | None, **kw) -> None:
+    """The port's spec tree has the reference's leaves, shapes and scales."""
+    import jax
+    from repro.models import api as japi
+    from repro.models.common import Spec
+    from repro_torch.models.common import tree_leaves
+    jcfg, tcfg = _jax_model(arch, **kw)
+    want = {".".join(str(k.key) for k in p): (tuple(s.shape), s.scale)
+            for p, s in jax.tree_util.tree_leaves_with_path(
+                japi.specs(jcfg), is_leaf=lambda x: isinstance(x, Spec))}
+    assert {p: (tuple(s.shape), s.scale)
+            for p, s in tree_leaves(tapi.specs(tcfg))} == want
+
+
+def _prefill_with_patches_on_dense() -> None:
+    """A dense model ignores ``patches``, as the reference's prefill does:
+    the reference's logits, and the same as without them."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.models import api as japi
+    from repro_torch import convert
+    jcfg, tcfg = _jax_model("smollm-135m")
+    jp = japi.init_params(jcfg, jax.random.key(0))
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    toks = np.arange(1, 7, dtype=np.int32)[None, :]
+    patches = np.ones((1, 3, 8), np.float32)
+    want, _ = japi.prefill(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                      "patches": jnp.asarray(patches)}, 8)
+    got, _ = tapi.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks),
+                                     "patches": torch.from_numpy(patches)}, 8)
+    plain, _ = tapi.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)}, 8)
+    assert torch.equal(got, plain)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5 * float(np.abs(want).max()), rtol=0)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: _specs_equal("zamba2-7b", attn_chunk=4),
+    lambda: _specs_equal("deepseek-v2-236b", attn_chunk=4),
+    lambda: _specs_equal(None, family="moe", n_experts=4, attn_chunk=4),
+    lambda: _specs_equal("seamless-m4t-medium"),
+    lambda: _specs_equal(None, use_mla=True, attn_chunk=4, q_lora_rank=48,
+                         kv_lora_rank=32, qk_nope_head_dim=32,
+                         qk_rope_head_dim=16, v_head_dim=32),
+    _prefill_with_patches_on_dense],
     ids=["zamba2", "deepseek", "moe", "encdec", "mla", "vlm-extras"])
-def test_lm_out_of_slice_calls_raise_not_implemented(call, item):
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        call()
+def test_formerly_refused_lm_calls_match_reference(call):
+    """These calls were refused until the vlm and encdec families and
+    ``attn_chunk`` were ported; each now runs and equals the reference's."""
+    call()
 
 
-def test_attn_chunk_is_refused():
-    mcfg = tconfigs.reduced_config("smollm-135m").replace(attn_chunk=4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tapi.init_params(mcfg, seed=0, device="cpu")
+def test_attn_chunk_matches_reference():
+    """``attn_chunk`` was refused until ``sdpa_chunked`` was ported: a
+    prefill whose 8 tokens the chunk of 4 splits goes through the q-chunked
+    path in every layer and equals the reference's, and the unchunked
+    causal prefill, within float32 rounding."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.models import api as japi
+    from repro_torch import convert
+    from repro_torch.models import attention as tattn
+    jcfg, mcfg = _jax_model("smollm-135m", attn_chunk=4)
+    jp = japi.init_params(jcfg, jax.random.key(1))
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), mcfg, "cpu")
+    toks = np.arange(3, 11, dtype=np.int32)[None, :]
+    chunked = []
+    real = tattn.sdpa_chunked
+    tattn.sdpa_chunked = lambda *a, **kw: chunked.append(1) or real(*a, **kw)
+    try:
+        got, _ = tapi.prefill(tp, mcfg, {"tokens": torch.from_numpy(toks)}, 8)
+    finally:
+        tattn.sdpa_chunked = real
+    assert len(chunked) == mcfg.n_layers
+    want, _ = japi.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, 8)
+    scale = float(np.abs(np.asarray(want)).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5 * scale, rtol=0)
+    plain, _ = tapi.prefill(tp, mcfg.replace(attn_chunk=0),
+                            {"tokens": torch.from_numpy(toks)}, 8)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5 * scale,
+                               rtol=0)

@@ -140,20 +140,24 @@ def decode_tree_parts(ttree, jtree, wins_rtol: float = WINS_RTOL) -> list[str]:
 
 def assert_same_decode_search(jcfg, jp, tcfg, tp, prompt: np.ndarray,
                               dkw: dict, seed: int,
-                              wins_rtol: float = WINS_RTOL):
+                              wins_rtol: float = WINS_RTOL,
+                              extras: dict | None = None):
     """Whole mcts_decode_search in both packages on the same weights;
     returns the port's (tree, stats). ``wins_rtol`` is for models whose
-    logits part by more than a shallow model's (a caller says why)."""
+    logits part by more than a shallow model's (a caller says why);
+    ``extras`` (numpy arrays) is the search's ``batch_extras``."""
+    extras = extras or {}
     ttree, tstats = _tmd.mcts_decode_search(
         tp, tcfg, torch.from_numpy(prompt), _tmd.MCTSDecodeConfig(**dkw),
-        rng.key(seed, "cpu"), device="cpu")
+        rng.key(seed, "cpu"),
+        {k: torch.from_numpy(v) for k, v in extras.items()}, device="cpu")
     jtree, jstats = _jmd.mcts_decode_search(
         jp, jcfg, jnp.asarray(prompt), _jmd.MCTSDecodeConfig(**dkw),
-        jax.random.key(seed))
+        jax.random.key(seed), {k: jnp.asarray(v) for k, v in extras.items()})
     fields = decode_tree_parts(ttree, jtree, wins_rtol)
     if fields:
         explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields,
-                                  wins_rtol)
+                                  wins_rtol, extras)
     else:
         for k in ("playouts", "tree_nodes", "best_token", "grain",
                   "root_children"):
@@ -241,7 +245,8 @@ def first_divergent_decision(tree, cfg, port: dict, ref: dict, cp, keys):
 
 
 def explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields,
-                              wins_rtol: float = WINS_RTOL):
+                              wins_rtol: float = WINS_RTOL,
+                              extras: dict | None = None):
     """Step both packages one iteration at a time; at the first iteration
     after which the trees part, replay its decisions in both from the
     port's tree before it and require the first differing one to sit
@@ -249,10 +254,13 @@ def explain_decode_divergence(jcfg, jp, tcfg, tp, prompt, dkw, seed, fields,
     tdc, jdc = _tmd.MCTSDecodeConfig(**dkw), _jmd.MCTSDecodeConfig(**dkw)
     P, W = len(prompt), tdc.n_workers
     max_len = P + tdc.max_depth + tdc.rollout_len + 1
-    tiled = np.tile(prompt, (W, 1))
-    tl, tcache = _tapi.prefill(tp, tcfg, {"tokens": torch.from_numpy(tiled)},
-                               max_len)
-    jl, jcache = _japi.prefill(jp, jcfg, {"tokens": jnp.asarray(tiled)}, max_len)
+    tiled = {"tokens": np.tile(prompt, (W, 1)),
+             **{k: np.tile(v, (W,) + (1,) * (v.ndim - 1))
+                for k, v in (extras or {}).items()}}
+    tl, tcache = _tapi.prefill(
+        tp, tcfg, {k: torch.from_numpy(v) for k, v in tiled.items()}, max_len)
+    jl, jcache = _japi.prefill(
+        jp, jcfg, {k: jnp.asarray(v) for k, v in tiled.items()}, max_len)
     troot, jroot = tl[0, 0].float(), jl[0, 0].astype(jnp.float32)
     ttree = tt.init_tree(tdc.tree_cap, tdc.branch, 1, device="cpu")
     jtree = jt.init_tree(jdc.tree_cap, jdc.branch, 1)
