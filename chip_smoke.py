@@ -54,8 +54,8 @@ the port's paths:
   its direct reference; a seeded fault plan's answers equal the fault-free
   ones; one engine tick profiled (CUDA activity);
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
-  weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 1
-  token after a 128-token prompt, 1,024 playouts on 64 lanes, run twice
+  weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 2
+  tokens after a 128-token prompt, 512 playouts a token on 64 lanes, run twice
   with bit-identical tokens and trees, then once more, and one
   search stepped side by side, with the kernels' plain versions;
 - LM serving on the same model: B = 4 token trees searched as one forest
@@ -89,12 +89,23 @@ the port's paths:
   for the 4 requests (``mcts_decode_search_batch``), each run twice
   bit-identical and, on float32 weights, equal to its run with the plain
   versions; paligemma's search with patches is refused (its prefix does
-  not fit the search's cache, as in the reference) before any kernel.
+  not fit the search's cache, as in the reference) before any kernel;
+- training at smollm-135m's full width (``lm_train``, bf16, flash on,
+  seed-0 weights): ``repro_torch.train.loop.train`` for 100 AdamW steps of
+  8 x 256 synthetic tokens in 2 microbatches, an async checkpoint at step
+  50 restored bit for bit and resumed for 10 steps (the straight run's
+  losses), the loss falling by at least a nat, every norm and attention
+  launched as its kernel under autograd (122 and 60 a step, each with one
+  backward through its plain version, no plain forward), and gradients
+  with the kernels against the plain versions (float32 with flash off and
+  on, the bf16 loss, each kernel's gradient at the training shapes in both
+  rmsnorm orders and on both flash bodies).
 
 ``lm_kernels`` also holds and times flash attention, rmsnorm and the
 one-tile ``uct_select`` at LM serving's shapes (``new_shapes``), the
 families' (``families_shapes``) and the vlm and encdec models'
-(``vlm_encdec_shapes``).
+(``vlm_encdec_shapes``), and rmsnorm at the training shape with its
+autograd backward (``rmsnorm_train_shape``).
 
 Each phase prints one JSON line; any failed check ends the run with a
 non-zero exit code. Without a GPU it exits non-zero and prints no result.
@@ -205,10 +216,11 @@ TICK_PLAYOUTS = 16_384
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
 # 2 generated tokens (the second search starts from the committed first),
-# each from a GSCPM search of 1,024 playouts on 64 lanes
+# each from a GSCPM search of 512 playouts on 64 lanes (1,024 until the
+# training phase needed the time: PERF.md §4)
 LM_PROMPT_LEN = 128
 LM_TOKENS = 2
-LM_PLAYOUTS = 1024
+LM_PLAYOUTS = 512
 LM_SEARCH = dict(n_workers=64, n_tasks=64, branch=8, max_depth=6,
                  rollout_len=8, tree_cap=4096)
 LM_PREFILL_SHAPE = (64, 9, 3, LM_PROMPT_LEN, 64)   # B, H, Hkv, S, d
@@ -232,8 +244,11 @@ LM_SERVE_ENGINE = dict(n_slots=8, max_len=256)
 LM_SERVE_GRAIN = 8
 # - lm_mcts_serve: 6 requests of 32-128-token prompts, 2 new tokens each,
 #   through TPFIFOMCTSEngine(4 slots, grain 1, preemption after 1 quantum)
-#   and MCTSSlotEngine(4 slots), at lm_batch's search configuration
+#   and MCTSSlotEngine(4 slots), at lm_batch's search configuration with
+#   128 playouts a token (256, lm_batch's, until the training phase needed
+#   the time: PERF.md §4)
 LM_MCTS_REQUESTS = 6
+LM_MCTS_PLAYOUTS = 128
 LM_MCTS_PROMPTS = (32, 128)
 LM_MCTS_MAX_NEW = 2
 LM_MCTS_MAX_PROMPT_LEN = 136
@@ -342,6 +357,28 @@ RMSNORM_CASES = [(D, N) for D in (576, 1024, 577) for N in (64, 64 * 128, 7)
 RMSNORM_F32_TOL = 1e-5
 RMSNORM_BF16_SHARE = 1e-3
 RMSNORM_BF16_STEPS = {"kernel": 1, "model": 2}
+# lm_train: smollm-135m at full width (bf16, seed-0 weights, flash on),
+# the synthetic pipeline's Zipf tokens, 100 AdamW steps of 8 x 256 tokens in
+# 2 microbatches, an async checkpoint at step 50, a resume from it for 10
+# steps; the loss must fall by LM_TRAIN_DROP nats (first step to the mean
+# of the last 10), the resumed steps after the first within
+# LM_TRAIN_RESUME_RTOL (the embedding's backward adds by atomics)
+LM_TRAIN_DATA = dict(seq_len=256, global_batch=8)
+LM_TRAIN_MICRO = 2
+LM_TRAIN_STEPS = 100
+LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=100)
+LM_TRAIN_CKPT = 50
+LM_TRAIN_RESUME_STEPS = 10
+LM_TRAIN_DROP = 1.0
+LM_TRAIN_RESUME_RTOL = 1e-3
+# gradients with the kernels against the plain versions, float32 at full
+# width: the loss within 1e-5 relative, each leaf within 1e-3 of its largest
+# magnitude
+LM_TRAIN_GRAD_LOSS_RTOL = 1e-5
+LM_TRAIN_GRAD_TOL = 1e-3
+# the training shape of the norm: one microbatch's 4 x 256 rows of d 576
+LM_TRAIN_NORM_SHAPE = (4 * 256, 576)
+LM_TRAIN_FLASH_SHAPE = (4, 9, 3, 256, 64)      # B, H, Hkv, S, d
 # logits of the full-width bf16 model (prefill, replay and rollout decode
 # steps), kernels vs plain versions: both round the same values to bf16 in
 # 61 norms and 30 attentions, where a one-ulp difference (2**-8 relative)
@@ -2403,6 +2440,55 @@ def phase_lm_kernels(torch):
     rn_prefill_bound, _ = bound_ms(2 * (2 * B * S * D + D), 4 * B * S * D,
                                    OPS_PER_S)
 
+    def lm_kernels_train_shape() -> dict:
+        """rmsnorm at the training shape (one microbatch, 1,024 x 576 bf16, the
+        model's order): held against its plain version, timed eagerly (in
+        turns with ``F.rms_norm``), in a CUDA graph and plain, beside its
+        bound; then the forward and backward under autograd (the kernel, then
+        the plain version's gradient) in turns with ``F.rms_norm``'s, and the
+        backward alone."""
+        import torch.nn.functional as F
+        from repro_torch.kernels import ops, ref
+        N, D = LM_TRAIN_NORM_SHAPE
+        bf = torch.bfloat16
+        x = (3 * torch.randn(N, D, generator=g, device="cuda")).to(bf)
+        w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+        call = lambda: ops.rmsnorm(x, w, 1e-5, order="model")
+        plain = lambda: ref.rmsnorm(x, w, 1e-5, order="model")
+        lib = lambda: F.rms_norm(x, (D,), w, 1e-5)
+        steps = int(bf16_steps(torch, call(), plain()).max())
+        check(steps <= RMSNORM_BF16_STEPS["model"],
+              f"rmsnorm at the training shape: {steps} bf16 steps from plain")
+        ms, lib_ms = time_pair_ms(call, lib)
+        bound, by = bound_ms(2 * (2 * N * D + D), 4 * N * D, OPS_PER_S)
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        cot = torch.randn(N, D, generator=g, device="cuda").to(bf)
+
+        def fwd_bwd(f):
+            return lambda: torch.autograd.grad(f(xg, wg), (xg, wg), cot)
+
+        kernel_fb = fwd_bwd(lambda a, b: ops.rmsnorm(a, b, 1e-5, order="model"))
+        lib_fb = fwd_bwd(lambda a, b: F.rms_norm(a, (D,), b, 1e-5))
+        fb_ms, lib_fb_ms = time_pair_ms(kernel_fb, lib_fb, iters=50)
+        out = ops.rmsnorm(xg, wg, 1e-5, order="model")
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, (xg, wg), cot,
+                                                     retain_graph=True), iters=50)
+        # the backward reads x, w and the cotangent and writes dx and dw: its
+        # bound, as the forward's, is bytes
+        bwd_bound, bwd_by = bound_ms(2 * (3 * N * D + 2 * D), 10 * N * D,
+                                     OPS_PER_S)
+        return {"shape": [N, D], "dtype": "bfloat16", "order": "model",
+                "max_bf16_steps": steps, "ms": ms, "in_graph_ms": graph_ms(call),
+                "plain_ms": time_ms(plain), "bound_ms": bound, "bound_by": by,
+                "library_ms": lib_ms, "library_in_graph_ms": graph_ms(lib),
+                "forward_backward_ms": fb_ms,
+                "library_forward_backward_ms": lib_fb_ms,
+                "backward_ms": bwd_ms, "backward_bound_ms": bwd_bound,
+                "backward_bound_by": bwd_by,
+                "backward": "the plain version's gradient (kernels._autograd)"}
+
+    rn_train = lm_kernels_train_shape()
+
     def lm_kernels_new_shapes() -> dict:
         """The LM kernels at the shapes LM serving gives them, each held
         against its plain version there and timed eagerly, in a CUDA graph
@@ -2598,6 +2684,7 @@ def phase_lm_kernels(torch):
          "prefill_shape": [B, S, D], "prefill_in_graph_ms": rn_prefill_graph,
          "prefill_bound_ms": rn_prefill_bound,
          "prefill_library_in_graph_ms": rn_prefill_lib_graph,
+         "train_shape": rn_train,
          "new_shapes": new_shapes["rmsnorm"],
          "families_shapes": families_shapes["rmsnorm"],
          "vlm_encdec_shapes": ve_shapes["rmsnorm"]},
@@ -2610,7 +2697,7 @@ def phase_lm_kernels(torch):
          flash_bodies=records[0]["bodies"], rmsnorm_host_us=rn_host,
          rmsnorm_prefill={k: records[1][k] for k in (
              "prefill_shape", "prefill_in_graph_ms", "prefill_bound_ms",
-             "prefill_library_in_graph_ms")},
+             "prefill_library_in_graph_ms")}, rmsnorm_train_shape=rn_train,
          new_shapes=new_shapes, families_shapes=families_shapes,
          vlm_encdec_shapes=ve_shapes)
     return records, new_shapes["uct_select"]
@@ -3367,7 +3454,7 @@ def phase_lm_mcts_serve(torch, model=None):
     """Search-guided LM serving at full width: 6 requests through
     ``TPFIFOMCTSEngine(4 slots, grain 1, preemption after 1 quantum)`` and
     ``MCTSSlotEngine(4 slots)``, every committed token a batched search of
-    lm_batch's configuration. Checks: every request gets 2 tokens in the
+    lm_batch's configuration at LM_MCTS_PLAYOUTS playouts. Checks: every request gets 2 tokens in the
     vocabulary, each engine run twice gives the same tokens, and
     ``MCTSSlotEngine``'s first tick commits exactly the best tokens of a
     direct ``mcts_decode_search_batch`` of its token matrix, lengths, mask
@@ -3380,7 +3467,7 @@ def phase_lm_mcts_serve(torch, model=None):
     from repro_torch.serve.tpfifo import TPFIFOMCTSEngine
     t_phase = time.perf_counter()
     mcfg, params, _ = model or lm_model(torch)
-    dcfg = lm_batch_cfg()
+    dcfg = lm_batch_cfg(LM_MCTS_PLAYOUTS)
     kw = dict(max_prompt_len=LM_MCTS_MAX_PROMPT_LEN, eos_id=-1, seed=0,
               device="cuda")
     engines = {
@@ -3445,7 +3532,7 @@ def phase_lm_mcts_serve(torch, model=None):
                  "max_new": LM_MCTS_MAX_NEW, "slots": LM_MCTS_SLOTS,
                  "max_prompt_len": LM_MCTS_MAX_PROMPT_LEN,
                  "tpfifo": {"grain": 1, "preempt_quanta": 1},
-                 **LM_SEARCH, "n_playouts": LM_BATCH_PLAYOUTS},
+                 **LM_SEARCH, "n_playouts": LM_MCTS_PLAYOUTS},
          tokens={name: r[1] for name, r in runs.items()},
          run_twice_bit_identical=True, first_tick_equals_direct_search=True,
          **{name: {**served_stats(r[0], r[2]),
@@ -4100,6 +4187,434 @@ def phase_lm_vlm_encdec(torch):
     return launches, bodies
 
 
+# ---------------------------------------------------------------- training ----
+def train_grads(torch, mcfg, params, batch):
+    """(loss, {path: grad}) of the training loss, and the rmsnorm and flash
+    counts it made: kernel launches, plain backwards, plain forwards."""
+    from repro_torch.train import step as step_mod
+    counters, plain = lm_train_counters()
+    with plain:
+        loss, grads = step_mod._value_and_grad(mcfg, params, batch)
+        torch.cuda.synchronize()
+    return float(loss), grads, read_train_counters(counters, plain)
+
+
+class _PlainForwards:
+    """Counts the plain versions' forwards (``kernels.ref.rmsnorm`` and
+    ``flash_attention``, what ``ops`` dispatches to off the kernels) while
+    active; the backward's recomputations go through the kernel modules'
+    own references and are counted by the wrappers' ``plain_backwards``."""
+
+    def __init__(self):
+        self.calls = {"rmsnorm": 0, "flash_attention": 0}
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self._real = {n: getattr(ref, n) for n in self.calls}
+        for n, f in self._real.items():
+            setattr(ref, n, self._counting(n, f))
+        return self
+
+    def _counting(self, name, f):
+        def g(*a, **kw):
+            self.calls[name] += 1
+            return f(*a, **kw)
+        return g
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        for n, f in self._real.items():
+            setattr(ref, n, f)
+
+
+def lm_train_counters():
+    """Zero the two training kernels' counters (launches, per-body, plain
+    backwards) just before a path runs; a plain-forward counter with them."""
+    counters = zero_lm_counters()
+    for name in ("rmsnorm", "flash_attention"):
+        counters[name].plain_backwards = 0
+    return counters, _PlainForwards()
+
+
+def read_train_counters(counters, plain) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    return {name: {"launches": counters[name].launches,
+                   "plain_backwards": counters[name].plain_backwards,
+                   "plain_forwards": plain.calls[name]}
+            for name in ("rmsnorm", "flash_attention")} | {
+        "flash_by_body": dict(fa.flash_attention.launches_by_body)}
+
+
+def grads_vs_plain(torch, mcfg, batch, what: str) -> dict:
+    """The loss and every leaf's gradient with the kernels against
+    ``ops.plain_versions()`` on the same float32 weights (seed 0) and
+    batch: the loss within LM_TRAIN_GRAD_LOSS_RTOL, every leaf a gradient
+    within LM_TRAIN_GRAD_TOL of its largest magnitude; the forward on the
+    kernels (61 rmsnorm launches and as many plain backwards; 30 flash
+    launches on the body ``body_for`` names when ``use_flash``), no plain
+    forward."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.models import api
+    params = api.init_params(mcfg, seed=0, device="cuda", requires_grad=True)
+    loss_k, g_k, counts = train_grads(torch, mcfg, params, batch)
+    with ops.plain_versions():
+        loss_p, g_p, plain_counts = train_grads(torch, mcfg, params, batch)
+    L = mcfg.n_layers
+    norms = 2 * L + 1
+    check(counts["rmsnorm"] == {"launches": norms, "plain_backwards": norms,
+                                "plain_forwards": 0},
+          f"{what}: rmsnorm counts {counts['rmsnorm']} with the kernels")
+    body = fa.body_for(mcfg.cdtype, mcfg.hd)
+    n_flash = L if mcfg.use_flash else 0
+    check(counts["flash_attention"] == {"launches": n_flash,
+                                        "plain_backwards": n_flash,
+                                        "plain_forwards": 0}
+          and counts["flash_by_body"][body] == n_flash,
+          f"{what}: flash counts {counts} with the kernels")
+    check(plain_counts["rmsnorm"]["launches"] == 0
+          and plain_counts["flash_attention"]["launches"] == 0,
+          f"{what}: a kernel launched under plain_versions()")
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= LM_TRAIN_GRAD_LOSS_RTOL,
+          f"{what}: loss {loss_k} with the kernels, {loss_p} plain")
+    worst, worst_leaf = 0.0, None
+    for path, gp in g_p.items():
+        gk = g_k[path]
+        check(gk is not None and gp is not None
+              and gk.shape == gp.shape and bool(torch.isfinite(gk).all()),
+              f"{what}: {path} has no finite gradient with the kernels")
+        scale = float(gp.abs().max())
+        err = float((gk.float() - gp.float()).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_leaf = err, path
+    check(worst <= LM_TRAIN_GRAD_TOL,
+          f"{what}: {worst_leaf} gradient {worst} of its largest value "
+          "from the plain versions'")
+    n_leaves = len(g_p)
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"loss": loss_k, "loss_plain": loss_p, "loss_rel_err": loss_err,
+            "leaves": n_leaves, "max_leaf_err": worst,
+            "max_leaf_err_path": worst_leaf, "flash_body": body
+            if mcfg.use_flash else None, "counts": counts}
+
+
+def bf16_loss_vs_plain(torch, mcfg, batch) -> dict:
+    """The bf16 model's loss (``"model"``-order norms, flash on the
+    tensor-core body) with the kernels against the plain versions, within
+    LOGITS_TOL of the plain loss; its gradients finite and on every leaf."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    params = api.init_params(mcfg, seed=0, device="cuda", requires_grad=True)
+    loss_k, g_k, counts = train_grads(torch, mcfg, params, batch)
+    with ops.plain_versions():
+        loss_p, _, _ = train_grads(torch, mcfg, params, batch)
+    check(counts["flash_by_body"]["tensor_cores"] == mcfg.n_layers,
+          f"bf16 loss: flash ran on {counts['flash_by_body']}")
+    check(abs(loss_k - loss_p) <= LOGITS_TOL * abs(loss_p),
+          f"bf16 loss {loss_k} with the kernels, {loss_p} plain")
+    check(all(g is not None and bool(torch.isfinite(g).all())
+              for g in g_k.values()), "bf16: a gradient missing or not finite")
+    return {"loss": loss_k, "loss_plain": loss_p,
+            "rel_diff": abs(loss_k - loss_p) / abs(loss_p), "counts": counts}
+
+
+def kernel_grads_at_training_shapes(torch) -> dict:
+    """Each training kernel through its autograd wrapper against the plain
+    version with autograd, on the same inputs and cotangent, at the
+    training shapes: rmsnorm (1,024 x 576) in both rounding orders and both
+    dtypes, flash (4, 9 over 3, 256, 64) bshd on both bodies (bf16: tensor
+    cores, float32: CUDA cores). The forward is the kernel's (within the
+    checks' tolerances of the plain forward); the gradients equal the plain
+    version's bit for bit (the backward is the plain version's)."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out = {"rmsnorm": [], "flash_attention": []}
+
+    def both(kernel_call, plain_call, inputs):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        ys = [t.detach().clone().requires_grad_(True) for t in inputs]
+        got = kernel_call(*xs)
+        want = plain_call(*ys)
+        cot = torch.randn(got.shape, generator=g, device="cuda").to(got.dtype)
+        gk = torch.autograd.grad(got, xs, cot)
+        gp = torch.autograd.grad(want, ys, cot)
+        torch.cuda.synchronize()
+        return got, want, all(torch.equal(a, b) for a, b in zip(gk, gp))
+
+    N, D = LM_TRAIN_NORM_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        for order in ("kernel", "model"):
+            x = (3 * torch.randn(N, D, generator=g, device="cuda")).to(dt)
+            w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(dt)
+            before = rn.rmsnorm.launches
+            got, want, equal = both(
+                lambda a, b: rn.rmsnorm(a, b, 1e-5, order=order),
+                lambda a, b: ref.rmsnorm(a, b, 1e-5, order=order), (x, w))
+            check(rn.rmsnorm.launches == before + 1,
+                  "rmsnorm under grad did not launch the kernel")
+            name = "float32" if dt == torch.float32 else "bfloat16"
+            got, want = got.detach(), want.detach()
+            err = float((got.float() - want.float()).abs().max())
+            if dt == torch.float32:
+                check(err <= RMSNORM_F32_TOL * 10, f"rmsnorm {order} f32 "
+                      f"forward under grad: {err}")
+            else:
+                steps = int(bf16_steps(torch, got, want).max())
+                check(steps <= RMSNORM_BF16_STEPS[order],
+                      f"rmsnorm {order} bf16 forward under grad: {steps}")
+            check(equal, f"rmsnorm {order} {name}: gradients differ from "
+                         "the plain version's")
+            out["rmsnorm"].append({"dtype": name, "order": order,
+                                   "forward_max_abs_err": err,
+                                   "grads_equal_plain": True})
+    B, H, Hkv, S, d = LM_TRAIN_FLASH_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, S, H, d, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(dt)
+        body = fa.body_for(dt, d)
+        before = dict(fa.flash_attention.launches_by_body)
+        got, want, equal = both(
+            lambda a, b, c: fa.flash_attention(a, b, c, layout="bshd"),
+            lambda a, b, c: fa._plain(a, b, c, True, None, "bshd"), (q, k, v))
+        check(fa.flash_attention.launches_by_body[body] == before[body] + 1,
+              f"flash under grad did not launch the {body} body")
+        name = "float32" if dt == torch.float32 else "bfloat16"
+        err = float((got.detach().float() - want.detach().float()).abs().max())
+        check(err <= FLASH_TOL[name], f"flash {name} forward under grad: {err}")
+        check(equal, f"flash {name}: gradients differ from the plain version's")
+        out["flash_attention"].append({"dtype": name, "body": body,
+                                       "forward_max_abs_err": err,
+                                       "grads_equal_plain": True})
+    # the CUDA kernels one backward of each launches (bf16, the training
+    # shapes): what a hand-written backward kernel would replace
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(N, D, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.ones(D, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(B, S, H, d, generator=g, device="cuda").to(torch.bfloat16)
+    kv = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    calls = {"rmsnorm": (lambda a, b: rn.rmsnorm(a, b, 1e-5, order="model"),
+                         (x, w)),
+             "flash_attention": (lambda a, b, c: fa.flash_attention(
+                 a, b, c, layout="bshd"), (q, kv, kv.clone()))}
+    for name, (call, inputs) in calls.items():
+        xs = [t.clone().requires_grad_(True) for t in inputs]
+        y = call(*xs)
+        cot = torch.ones_like(y)
+        torch.autograd.grad(call(*xs), xs, cot)      # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(y, xs, cot)
+            torch.cuda.synchronize()
+        kernels, device_ms = cuda_activity(prof)
+        out[name + "_backward"] = {"cuda_kernels": kernels,
+                                   "device_ms": device_ms}
+    return out
+
+
+def profile_one_train_step(torch, step_fn, state, batch) -> dict:
+    """One training step under the profiler (CUDA activity): its kernels,
+    device ms, wall ms and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, device_ms = cuda_activity(prof)
+    check(device_ms, "torch.profiler saw no CUDA kernel in a training step")
+    return {"cuda_kernels": kernels, "device_ms": device_ms,
+            "wall_ms": wall_ms, "device_idle_share": 1 - device_ms / wall_ms}
+
+
+def phase_lm_train(torch):
+    """Training on one card at smollm-135m's full width (30 layers, d 576,
+    9 over 3 heads, vocab 49,152, tied embeddings, bf16, flash on), seed-0
+    weights from ``init_params``: ``train.loop.train`` for LM_TRAIN_STEPS
+    AdamW steps of the synthetic pipeline's 8 x 256 tokens in 2
+    microbatches, an ``AsyncSaver`` checkpoint at step 50 into a temporary
+    directory (deleted at the end). Checks: every loss finite, none
+    skipped, the mean of the last 10 at least LM_TRAIN_DROP nats below the
+    first; rmsnorm launches 61 x 2 a step and flash 30 x 2 (tensor cores),
+    each with one plain backward, and no plain forward; the step-50
+    checkpoint restores bit for bit, and a run resumed from it gives the
+    straight run's step-50 loss exactly and its next 9 within
+    LM_TRAIN_RESUME_RTOL. Then gradients with the kernels against the
+    plain versions at full width (float32: rmsnorm only, then flash on the
+    CUDA-core body; bf16: the loss, flash on tensor cores), each kernel's
+    gradient at the training shapes in both orders and on both bodies, and
+    one profiled step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch_fn
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.loop import LoopConfig, train
+    t_phase = time.perf_counter()
+    mcfg = get_config("smollm-135m").replace(use_flash=True)
+    dcfg = DataConfig(**LM_TRAIN_DATA)
+    opt = OptConfig(**LM_TRAIN_OPT)
+    L = mcfg.n_layers
+    tokens_per_step = dcfg.global_batch * dcfg.seq_len
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_lm_train_")
+    log: list[str] = []
+    seconds = {}        # the phase's parts, host clock
+    try:
+        counters, plain = lm_train_counters()
+        torch.cuda.reset_peak_memory_stats()
+        with plain:
+            t0 = time.perf_counter()
+            out = train(mcfg, opt, dcfg, LoopConfig(
+                steps=LM_TRAIN_STEPS, ckpt_dir=ckpt, ckpt_every=LM_TRAIN_CKPT,
+                log_every=10, n_microbatches=LM_TRAIN_MICRO, seed=0),
+                log=log.append, device="cuda")
+            wall = time.perf_counter() - t0
+        seconds["train"] = wall
+        steps_per_s = out["steps_per_s"]
+        counts = read_train_counters(counters, plain)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        check(len(hist) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+              f"lm_train: {len(hist)} steps, losses {losses}")
+        check(not any(h["skipped"] for h in hist), "lm_train: a step skipped")
+        drop = losses[0] - float(np.mean(losses[-10:]))
+        check(drop >= LM_TRAIN_DROP,
+              f"lm_train: the loss fell {drop:.3f} nats ({losses[0]:.3f} -> "
+              f"mean of the last 10 {np.mean(losses[-10:]):.3f})")
+        micro = LM_TRAIN_STEPS * LM_TRAIN_MICRO
+        check(counts["rmsnorm"] == {"launches": (2 * L + 1) * micro,
+                                    "plain_backwards": (2 * L + 1) * micro,
+                                    "plain_forwards": 0},
+              f"lm_train: rmsnorm counts {counts['rmsnorm']}, expected "
+              f"{2 * L + 1} x {LM_TRAIN_MICRO} a step and no plain forward")
+        check(counts["flash_attention"] == {"launches": L * micro,
+                                            "plain_backwards": L * micro,
+                                            "plain_forwards": 0}
+              and counts["flash_by_body"] == {"tensor_cores": L * micro,
+                                              "cuda_cores": 0},
+              f"lm_train: flash counts {counts}")
+        launches = {"flash_attention": L * micro,
+                    "rmsnorm": (2 * L + 1) * micro, "uct_select": 0}
+        times = [h["time_s"] for h in hist]
+
+        # the step-50 checkpoint: bit for bit, then a resumed run
+        t0 = time.perf_counter()
+        step50 = store.step_dir(ckpt, LM_TRAIN_CKPT)
+        restored, extra = store.restore(ckpt, LM_TRAIN_CKPT,
+                                        step_mod.abstract_state(mcfg),
+                                        device="cuda")
+        check(extra == {"data_step": LM_TRAIN_CKPT},
+              f"lm_train: step-50 extra {extra}")
+        with np.load(os.path.join(step50, "arrays.npz")) as z:
+            for key, t in store._flatten(restored).items():
+                saved = torch.from_numpy(z[key]).to("cuda")
+                check(torch.equal(t.to(saved.dtype), saved),
+                      f"lm_train: restored {key} differs from the checkpoint")
+        check(int(restored["opt"]["step"]) == LM_TRAIN_CKPT,
+              "lm_train: restored step counter")
+        del restored
+        seconds["restore_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resume_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_resume_")
+        try:
+            # the step-50 directory, linked (not copied) into a fresh one
+            shutil.copytree(step50, store.step_dir(resume_dir, LM_TRAIN_CKPT),
+                            copy_function=os.link)
+            rlog: list[str] = []
+            resumed = train(mcfg, opt, dcfg, LoopConfig(
+                steps=LM_TRAIN_CKPT + LM_TRAIN_RESUME_STEPS,
+                ckpt_dir=resume_dir, ckpt_every=LM_TRAIN_STEPS,
+                log_every=LM_TRAIN_STEPS, n_microbatches=LM_TRAIN_MICRO),
+                log=rlog.append, device="cuda")
+        finally:
+            shutil.rmtree(resume_dir, ignore_errors=True)
+        rl = [h["loss"] for h in resumed["history"]]
+        sl = losses[LM_TRAIN_CKPT:LM_TRAIN_CKPT + LM_TRAIN_RESUME_STEPS]
+        check(rlog[0] == f"[resume] restored step {LM_TRAIN_CKPT}, data_step "
+                         f"{LM_TRAIN_CKPT}" and len(rl) == len(sl),
+              f"lm_train: resume {rlog[:1]}, {len(rl)} steps")
+        check(rl[0] == sl[0], f"lm_train: resumed step-50 loss {rl[0]} != "
+                              f"the straight run's {sl[0]}")
+        resume_err = max(abs(a - b) / abs(b) for a, b in zip(rl[1:], sl[1:]))
+        check(resume_err <= LM_TRAIN_RESUME_RTOL,
+              f"lm_train: resumed losses {rl} against {sl}")
+        del resumed
+        seconds["resume"] = time.perf_counter() - t0
+
+        # one profiled step on the trained state
+        t0 = time.perf_counter()
+        state = out["state"]
+        step_fn = step_mod.make_train_step(mcfg, opt, LM_TRAIN_MICRO)
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                 make_batch_fn(dcfg, mcfg)(LM_TRAIN_STEPS).items()}
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        profiled = profile_one_train_step(torch, step_fn, state, batch)
+        n_params = sum(p.numel() for _, p in tree_leaves(state["params"].tree()))
+        del out, state
+        torch.cuda.empty_cache()
+        seconds["profiled_step"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+
+    # gradients with the kernels against the plain versions, full width
+    micro_batch = {k: torch.as_tensor(v[:dcfg.global_batch // LM_TRAIN_MICRO],
+                                      device="cuda")
+                   for k, v in make_batch_fn(dcfg, mcfg)(0).items()}
+    f32 = mcfg.replace(param_dtype="float32", compute_dtype="float32")
+    grads = {"float32_rmsnorm": grads_vs_plain(
+                 torch, f32.replace(use_flash=False), micro_batch,
+                 "float32 grads, rmsnorm"),
+             "float32_flash": grads_vs_plain(
+                 torch, f32, micro_batch, "float32 grads, rmsnorm + flash"),
+             "bfloat16_loss": bf16_loss_vs_plain(torch, mcfg, micro_batch)}
+    seconds["grads_vs_plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    at_shapes = kernel_grads_at_training_shapes(torch)
+    seconds["kernel_grads"] = time.perf_counter() - t0
+    step_ms = 1e3 * float(np.median(times[1:]))
+    emit("lm_train",
+         config={"model": "smollm-135m", "n_params": n_params,
+                 "dtype": "bfloat16", "use_flash": True, **LM_TRAIN_DATA,
+                 "n_microbatches": LM_TRAIN_MICRO, "steps": LM_TRAIN_STEPS,
+                 "opt": LM_TRAIN_OPT, "ckpt_every": LM_TRAIN_CKPT,
+                 "weights": "random, seed 0", "data": "synthetic Zipf, seed 17"},
+         losses_every_10=losses[::10], loss_first=losses[0],
+         loss_last10_mean=float(np.mean(losses[-10:])), loss_drop=drop,
+         seconds_train=wall, steps_per_s=steps_per_s,
+         ms_per_step_median=step_ms,
+         tokens_per_s=tokens_per_step * steps_per_s,
+         first_step_s=times[0], peak_memory_mb=peak_mb,
+         launches=launches, counts=counts,
+         per_step={"rmsnorm_launches": counts["rmsnorm"]["launches"]
+                   // LM_TRAIN_STEPS,
+                   "rmsnorm_plain_backwards":
+                       counts["rmsnorm"]["plain_backwards"] // LM_TRAIN_STEPS,
+                   "flash_launches": counts["flash_attention"]["launches"]
+                   // LM_TRAIN_STEPS,
+                   "flash_plain_backwards":
+                       counts["flash_attention"]["plain_backwards"]
+                       // LM_TRAIN_STEPS},
+         resume={"step": LM_TRAIN_CKPT, "restored_bit_equal": True,
+                 "first_loss_equal": True, "max_rel_err_next": resume_err,
+                 "losses": rl},
+         profiled_step=profiled, grads_vs_plain=grads,
+         kernel_grads_at_training_shapes=at_shapes,
+         log_tail=log[-3:], seconds=seconds,
+         steps_seconds=sum(times), phase_seconds=time.perf_counter() - t_phase)
+    return launches, counts["flash_by_body"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
@@ -4149,16 +4664,19 @@ def main(argv=None) -> int:
     del model
     families_launches, families_bodies = phase_lm_families(torch)
     ve_launches, ve_bodies = phase_lm_vlm_encdec(torch)
+    train_launches, train_bodies = phase_lm_train(torch)
     flash_by_body = add_counts(flash_by_body, batch_bodies, serve_bodies,
-                               mcts_bodies, families_bodies, ve_bodies)
+                               mcts_bodies, families_bodies, ve_bodies,
+                               train_bodies)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
         # Hex search, the paper's sweep, the Hex forest and game serving;
         # select_descent on Gomoku (its playout has no kernel); uct_select
         # (the LM descent's tile), flash_attention and rmsnorm on the LM
-        # search, the batched search, the LM engines, the families and the
-        # vlm and encdec models; hex_winner judges filled boards, which no
+        # search, the batched search, the LM engines, the families, the
+        # vlm and encdec models and training (flash and rmsnorm: the
+        # forward's launches); hex_winner judges filled boards, which no
         # path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
@@ -4170,7 +4688,8 @@ def main(argv=None) -> int:
                    "lm_serve": lm_serve_launches.get(r["name"], 0),
                    "lm_mcts_serve": mcts_serve_launches.get(r["name"], 0),
                    "lm_families": families_launches.get(r["name"], 0),
-                   "lm_vlm_encdec": ve_launches.get(r["name"], 0)}
+                   "lm_vlm_encdec": ve_launches.get(r["name"], 0),
+                   "lm_train": train_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():

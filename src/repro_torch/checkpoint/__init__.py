@@ -1,2 +1,3 @@
-"""Checkpoint store (port of ``repro.checkpoint``): the flatten helpers the
-serving snapshots use; the store itself is ROADMAP.md item A13."""
+"""Checkpoint store (port of ``repro.checkpoint``): the atomic, async
+on-disk store training resumes from, and the flatten helpers the serving
+snapshots use."""

@@ -3,7 +3,8 @@
 The port imports no JAX, so the exchange format is numpy: a test (or a
 migration script) calls ``np.asarray`` / ``jax.random.key_data`` on the JAX
 side and hands the arrays here. That is what lets a search be stopped in
-one package after round r and continued in the other.
+one package after round r and continued in the other, and a training run
+started in both from one state (``train_state_from_numpy``).
 """
 
 from __future__ import annotations
@@ -93,7 +94,8 @@ def model_config_from_dict(d: dict) -> ModelConfig:
     return ModelConfig(**d)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> TransformerLM:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
+                      requires_grad: bool = False) -> TransformerLM:
     """A ``TransformerLM`` from the JAX package's parameter tree given as
     nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``):
     a decoder-only family's (``stage_i``, ``shared``, the vlm family's
@@ -102,7 +104,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> TransformerL
 
     Every leaf the config's spec tree has must be there, with its shape;
     nothing else may be. Arrays are copied and cast to ``cfg.param_dtype``
-    (a bfloat16 array crosses as float32 first, which is exact)."""
+    (a bfloat16 array crosses as float32 first, which is exact).
+    ``requires_grad`` makes a trainable module."""
     device = torch.device("cuda") if device is None else torch.device(device)
     want = api.param_shapes(cfg)
     got = dict(tree_leaves(tree))
@@ -118,4 +121,54 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> TransformerL
                              f"{arr.shape}, expected {want[path]}")
         tree_set(out, path, torch.tensor(arr.astype(np.float32),
                                          dtype=cfg.pdtype, device=device))
-    return TransformerLM(cfg, out)
+    return TransformerLM(cfg, out, requires_grad=requires_grad)
+
+
+def train_state_from_numpy(state: dict, cfg: ModelConfig, device=None,
+                           moment_dtype: str = "float32") -> dict:
+    """A training state (``train.step``'s: trainable params, the AdamW
+    moments and step) from the JAX package's state given as nested dicts of
+    numpy arrays (``jax.tree.map(np.asarray, state)``): ``{"params": ...,
+    "opt": {"m": ..., "v": ..., "step": ()}}``. The moments must have the
+    params' tree and shapes; they are cast to ``moment_dtype``."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    params = params_from_numpy(state["params"], cfg, device,
+                               requires_grad=True)
+    want = api.param_shapes(cfg)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[moment_dtype]
+    opt: dict = {"m": {}, "v": {}}
+    for name in ("m", "v"):
+        got = dict(tree_leaves(state["opt"][name]))
+        if set(got) != set(want):
+            raise KeyError(f"train_state_from_numpy: opt/{name} leaves "
+                           f"{sorted(set(got) ^ set(want))} differ from the "
+                           "params'")
+        for path, arr in got.items():
+            arr = np.asarray(arr).astype(np.float32)
+            if tuple(arr.shape) != tuple(want[path]):
+                raise ValueError(f"train_state_from_numpy: opt/{name} {path} "
+                                 f"has shape {arr.shape}, expected "
+                                 f"{want[path]}")
+            tree_set(opt[name], path, torch.tensor(arr, dtype=dt,
+                                                   device=device))
+    opt["step"] = torch.tensor(int(np.asarray(state["opt"]["step"])),
+                               dtype=torch.int32, device=device)
+    return {"params": params, "opt": opt}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The inverse: nested dicts of numpy arrays, the reference's tree
+    (bfloat16 leaves as float32, the step an int32 0-d array)."""
+    def host(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    params = state["params"]
+    params = params.tree() if isinstance(params, TransformerLM) else params
+    out: dict = {"params": {}, "opt": {"m": {}, "v": {}}}
+    for path, t in tree_leaves(params):
+        tree_set(out["params"], path, host(t))
+    for name in ("m", "v"):
+        for path, t in tree_leaves(state["opt"][name]):
+            tree_set(out["opt"][name], path, host(t))
+    out["opt"]["step"] = host(state["opt"]["step"]).astype(np.int32)
+    return out

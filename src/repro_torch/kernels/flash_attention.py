@@ -27,16 +27,26 @@ Each body counts its launches in ``flash_attention.launches_by_body``;
 (``kernels.ref.flash_attention``) is the plain PyTorch version;
 ``kernels.ops.flash_attention`` chooses between it and the kernels by where
 the tensors lie.
+
+Under autograd (grad enabled and q, k or v requiring it) the forward is
+still the kernel, on the body ``body_for`` names, counted as above; the
+backward is the plain version's gradient, recomputed from the saved q, k
+and v in the call's layout (``_autograd.KernelFn``, counted in
+``flash_attention.plain_backwards``), for either body: the TPU kernel has no
+backward, and the JAX package's attention is differentiated through jnp.
+No plain forward runs under grad. When nothing requires grad, the host
+path is the one above.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention as flash_attention_plain  # noqa: F401
+from repro_torch.kernels import _autograd, _build
+from repro_torch.kernels.ref import flash_attention as flash_attention_plain
 
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (32, 64, 80, 96, 112, 128)   # csrc/flash_attention.cu: instances
@@ -91,7 +101,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (the models'): q (B, S, H, d), k/v (B, S, Hkv, d). ``H % Hkv == 0``;
     all on the current CUDA device, one dtype (float32 or bfloat16), last
     axis contiguous (the other axes may be strided views). Returns the
-    attention in q's layout and dtype, a fresh contiguous tensor."""
+    attention in q's layout and dtype, a fresh contiguous tensor;
+    differentiable in q, k and v (module docstring)."""
+    if ((q.requires_grad or k.requires_grad or v.requires_grad)
+            and torch.is_grad_enabled()):
+        kw = dict(causal=causal, scale=scale, layout=layout)
+        return _autograd.KernelFn.apply(
+            functools.partial(_kernel, **kw), functools.partial(_plain, **kw),
+            flash_attention, q, k, v)
+    return _kernel(q, k, v, causal, scale, layout)
+
+
+def _plain(q, k, v, causal: bool, scale: float | None, layout: str):
+    """The plain version in either layout (the backward's recomputation)."""
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    out = flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return out.transpose(1, 2) if layout == "bshd" else out
+
+
+def _kernel(q, k, v, causal: bool, scale: float | None,
+            layout: str) -> torch.Tensor:
+    """One launch of the body ``body_for`` names (no autograd)."""
     if layout == "bhsd":
         ax_h, ax_s = 1, 2
     elif layout == "bshd":
@@ -144,3 +175,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0  # kernel launches made by this wrapper
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+flash_attention.plain_backwards = 0  # backward passes through the plain version

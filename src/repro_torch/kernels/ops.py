@@ -15,6 +15,11 @@ dispatch target on both devices — not a fallback.
 Call sites (``core/gscpm.py``, ``core/hex.py``, ``core/gomoku.py``, ``models/attention.py``,
 ``models/layers.py``, ``serve/mcts_decode.py``) go through these wrappers
 only.
+
+Training differentiates through ``rmsnorm`` and ``flash_attention`` on
+both paths: on the card the forward is still the kernel and the backward
+the plain version's gradient (``kernels._autograd``), on the CPU autograd
+runs through the plain version itself.
 """
 
 from __future__ import annotations

@@ -17,14 +17,24 @@ times.
 
 ``rmsnorm_plain`` (``kernels.ref.rmsnorm``) is the plain PyTorch version;
 ``kernels.ops.rmsnorm`` chooses between the two by where the tensors lie.
+
+Under autograd (grad enabled and ``x`` or ``w`` requiring it) the forward
+is still the kernel, one launch counted in ``rmsnorm.launches``; the
+backward is the plain version's gradient, recomputed from the saved ``x``
+and ``w`` (``_autograd.KernelFn``, counted in ``rmsnorm.plain_backwards``),
+for either rounding order: the TPU kernel has no backward, and the JAX
+models differentiate the jnp norm. No plain forward runs under grad. When
+nothing requires grad, the host path is the one above.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain  # noqa: F401
+from repro_torch.kernels import _autograd, _build
+from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ORDER_CODE = {"kernel": 0, "model": 1}
@@ -56,7 +66,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
             order: str = "kernel") -> torch.Tensor:
     """x: (..., D) contiguous, float32 or bfloat16; w: (D,) float32 or
     bfloat16; both on the current CUDA device. Returns x's shape and
-    dtype."""
+    dtype; differentiable in ``x`` and ``w`` (module docstring)."""
+    if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
+        return _autograd.KernelFn.apply(
+            functools.partial(_kernel, eps=eps, order=order),
+            functools.partial(rmsnorm_plain, eps=eps, order=order),
+            rmsnorm, x, w)
+    return _kernel(x, w, eps, order)
+
+
+def _kernel(x: torch.Tensor, w: torch.Tensor, eps: float,
+            order: str) -> torch.Tensor:
+    """One launch of the kernel (no autograd)."""
     xd, wd = _DTYPE_CODE.get(x.dtype), _DTYPE_CODE.get(w.dtype)
     oc = _ORDER_CODE.get(order)
     dev = x.get_device()
@@ -79,3 +100,4 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
 
 
 rmsnorm.launches = 0  # kernel launches made by this wrapper
+rmsnorm.plain_backwards = 0  # backward passes through the plain version

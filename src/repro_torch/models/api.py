@@ -4,11 +4,14 @@ Mamba-2, the zamba2 hybrid, xLSTM: ``transformer.py``) and the
 encoder-decoder family (``encdec.py``):
 
     specs(cfg)                              -> param Spec tree
+    loss(params, cfg, batch)                -> scalar float32 loss
     cache_specs(cfg, batch, max_len)        -> {...: (shape, dtype, axes)}
     init_cache(cfg, batch, max_len, device=) -> zeroed cache tree
     prefill(params, cfg, batch, max_len)    -> (logits, cache)
     decode(params, cfg, token, pos, cache)  -> (logits, cache)   (cache in place)
     init_params(cfg, seed, device)          -> TransformerLM
+    abstract_params(cfg)                    -> meta-tensor tree (no memory)
+    param_axes(cfg)                         -> logical-axis tree
 
 ``prefill``'s batch holds ``tokens`` and, by family, the stub frontends'
 inputs: ``patches`` (vlm: (B, n_patches, vision_width)) or ``frames``
@@ -28,7 +31,8 @@ import torch
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ModelConfig, init_tree, spec_with_dtype,
-                                       tree_leaves, tree_map)
+                                       tree_axes, tree_leaves, tree_map,
+                                       tree_specs)
 from repro_torch.models.common import n_params as _n_params
 
 # encoder memory length of the enc-dec decode shapes when the caller gives
@@ -40,6 +44,13 @@ def specs(cfg: ModelConfig):
     if cfg.family == "encdec":
         return ed.encdec_specs(cfg)
     return tfm.lm_specs(cfg)
+
+
+def loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The training loss: ``encdec_loss`` or ``lm_loss`` by family."""
+    if cfg.family == "encdec":
+        return ed.encdec_loss(params, cfg, batch)
+    return tfm.lm_loss(params, cfg, batch)
 
 
 def _src_len(max_len: int, src_len: int | None) -> int:
@@ -96,16 +107,29 @@ def n_params(cfg: ModelConfig) -> int:
     return _n_params(specs(cfg))
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> tfm.TransformerLM:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                requires_grad: bool = False) -> tfm.TransformerLM:
     """Random weights from an explicit generator seeded with ``seed``, drawn
     on ``device`` (``None`` = CUDA) at the JAX package's scales. Not the JAX
     package's bits: parity tests convert its weights instead
-    (``repro_torch.convert.params_from_numpy``)."""
+    (``repro_torch.convert.params_from_numpy``). ``requires_grad`` makes a
+    trainable module."""
     device = torch.device("cuda") if device is None else torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     tree = init_tree(spec_with_dtype(specs(cfg), cfg.param_dtype), gen, device)
-    return tfm.TransformerLM(cfg, tree)
+    return tfm.TransformerLM(cfg, tree, requires_grad=requires_grad)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors of the param dtype: shapes and
+    dtypes, no memory (a checkpoint restore's template)."""
+    return tree_specs(spec_with_dtype(specs(cfg), cfg.param_dtype))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The parallel tree of logical-axis tuples."""
+    return tree_axes(specs(cfg))
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:

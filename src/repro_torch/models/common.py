@@ -1,7 +1,5 @@
 """Model configuration and parameter-tree machinery (port of
-``repro.models.common``; the sharding annotations' helpers, ``tree_axes``
-and ``tree_specs``, and ``maybe_scan`` belong to training, ROADMAP.md item
-A13a).
+``repro.models.common``).
 
 Parameters are nested dicts of tensors, keyed as in the JAX package, with a
 parallel tree of ``Spec`` leaves (shape, logical axes, init scale). The
@@ -169,8 +167,25 @@ def store_layer(buf: dict | None, i: int, n: int, tree: dict) -> dict:
 
 def unstack(tree: dict, n: int) -> list[dict]:
     """The inverse view: n trees, the i-th indexing every leaf at i (views,
-    no copies)."""
-    return [tree_map(lambda t, i=i: t[i], tree) for i in range(n)]
+    no copies). One ``unbind`` a leaf: under autograd its backward stacks
+    the n layers' gradients in one op, where n ``t[i]`` views would each
+    scatter into a zero tensor of the whole stack."""
+    cols = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda c, i=i: c[i], cols) for i in range(n)]
+
+
+def tree_specs(spec_tree) -> dict:
+    """The abstract parameter tree: each leaf an empty tensor of the spec's
+    shape and dtype on the ``meta`` device (no allocation), the twin of the
+    reference's ``ShapeDtypeStruct`` tree."""
+    return tree_map(lambda s: torch.empty(
+        s.shape, dtype=torch_dtype(s.dtype or "float32"), device="meta"),
+        spec_tree)
+
+
+def tree_axes(spec_tree) -> dict:
+    """The parallel tree of logical-axis tuples."""
+    return tree_map(lambda s: s.axes, spec_tree)
 
 
 def n_params(spec_tree) -> int:
@@ -223,3 +238,50 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return {"silu": F.silu, "gelu": _gelu_tanh, "gelu_mlp": _gelu_tanh,
             "relu": F.relu}[name]
+
+
+def _map_any(fn, tree):
+    """``fn`` over the tensor leaves of nested dicts, lists and tuples
+    (``None`` stays ``None``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_any(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_any(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _first_leaf(tree):
+    if isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+        return _first_leaf(tree)
+    if isinstance(tree, (list, tuple)):
+        return _first_leaf(tree[0])
+    return tree
+
+
+def _stack(ys: list):
+    if isinstance(ys[0], dict):
+        return {k: _stack([y[k] for y in ys]) for k in ys[0]}
+    if isinstance(ys[0], (list, tuple)):
+        return type(ys[0])(_stack(list(c)) for c in zip(*ys))
+    return torch.stack(ys)
+
+
+def maybe_scan(cfg: ModelConfig, body, init, xs, length: int | None = None):
+    """The reference's ``lax.scan`` (or its unrolled loop) over STRUCTURAL
+    loops — layer stacks, CE chunks, microbatches: a Python loop, ``carry,
+    y = body(carry, x_i)`` with ``x_i`` every leaf of ``xs`` (nested dicts,
+    lists, tuples) at i; returns ``(carry, ys)``, the ``y``s stacked along a
+    new leading axis, or ``None`` when every ``y`` is ``None``. ``cfg`` is
+    taken for the reference's signature: both of its modes are this loop."""
+    n = length if xs is None else _first_leaf(xs).shape[0]
+    carry, ys = init, []
+    for i in range(n):
+        xi = None if xs is None else _map_any(lambda a, i=i: a[i], xs)
+        carry, y = body(carry, xi)
+        ys.append(y)
+    if all(y is None for y in ys):
+        return carry, None
+    return carry, _stack(ys)

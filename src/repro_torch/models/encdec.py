@@ -1,6 +1,5 @@
 """Encoder-decoder assembly, the seamless-m4t backbone (port of
-``repro.models.encdec`` without ``encdec_loss``, which is training's:
-ROADMAP.md item A13a).
+``repro.models.encdec``).
 
 The speech frontend is a stub: the caller supplies precomputed frame
 embeddings (B, S_src, frame_dim), which the ``frontend`` matrix lifts to
@@ -28,8 +27,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ModelConfig, dense_spec, norm_spec,
                                        store_layer, tree_map)
-from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
-                                       rmsnorm, unembed)
+from repro_torch.models.layers import (chunked_ce_loss, embed, embed_specs,
+                                       mlp, mlp_specs, rmsnorm, unembed)
 
 
 # ------------------------------------------------------------------ blocks ----
@@ -116,8 +115,9 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_src, frame_dim) stub embeddings -> memory (B, S_src, d)."""
     (enc, _), params = tfm._layers(params, cfg), tfm.as_tree(params)
     x = frames.to(cfg.cdtype) @ params["frontend"].to(cfg.cdtype)
+    fwd = tfm._maybe_remat(enc_block_fwd, cfg)
     for lp in enc:
-        x = enc_block_fwd(lp, cfg, x)
+        x = fwd(lp, cfg, x)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -126,9 +126,18 @@ def encdec_hidden(params, cfg: ModelConfig, frames, tokens) -> torch.Tensor:
     memory = encode(params, cfg, frames)
     (_, dec), params = tfm._layers(params, cfg), tfm.as_tree(params)
     x = embed(params["embed"], tokens, cfg)
+    fwd = tfm._maybe_remat(dec_block_fwd, cfg)
     for lp in dec:
-        x = dec_block_fwd(lp, cfg, x, memory)
+        x = fwd(lp, cfg, x, memory)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def encdec_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: ``frames``, ``tokens``, ``labels`` [, ``mask``] -> the decoder's
+    scalar float32 cross-entropy."""
+    hidden = encdec_hidden(params, cfg, batch["frames"], batch["tokens"])
+    return chunked_ce_loss(tfm.as_tree(params)["embed"], cfg, hidden,
+                           batch["labels"], batch.get("mask"))
 
 
 # ------------------------------------------------------------------- serve ----

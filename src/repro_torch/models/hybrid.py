@@ -47,13 +47,20 @@ def _pick_shared(shared: list, i: int, n_shared: int):
     return shared[i % n_shared]
 
 
-def zamba_seg_scan(segs: list, cfg, x, shared: list):
+def zamba_seg_scan(segs: list, cfg, x, shared: list, maybe_remat=None):
+    """The stage's forward; ``maybe_remat`` (``transformer._maybe_remat``)
+    wraps each whole segment, as the reference's wraps its scan body."""
     tfm = _tfm()
-    for i, seg in enumerate(segs):
+
+    def seg_fwd(x, seg, blk):
         for lp in seg["mamba"]:
             x = tfm.mamba_block_fwd(lp, cfg, x)
-        x = tfm.dense_block_fwd(_pick_shared(shared, i, cfg.n_shared_blocks),
-                                cfg, x)
+        return tfm.dense_block_fwd(blk, cfg, x)
+
+    if maybe_remat is not None:
+        seg_fwd = maybe_remat(seg_fwd, cfg)
+    for i, seg in enumerate(segs):
+        x = seg_fwd(x, seg, _pick_shared(shared, i, cfg.n_shared_blocks))
     return x
 
 

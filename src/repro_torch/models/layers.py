@@ -1,6 +1,6 @@
 """Shared neural building blocks: norms, RoPE, sinusoidal positions, MLP,
-embeddings (port of ``repro.models.layers`` without the losses, which are
-training's: ROADMAP.md item A13a).
+embeddings, the token cross-entropy and its sequence-chunked form (port of
+``repro.models.layers``).
 
 Each function rounds where its JAX twin rounds: ``rmsnorm`` normalises in
 float32 and casts before the weight multiply (the ``"model"`` order of the
@@ -14,6 +14,7 @@ import functools
 import math
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, Spec, activation, dense_spec
@@ -120,3 +121,55 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         w = params["unembed"].to(x.dtype)
     return x @ w
+
+
+# -------------------------------------------------------------------- loss ----
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood in float32: logsumexp minus the
+    target's logit."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return lse - ll
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross-entropy in float32; logits (B, S, V), targets (B,
+    S); with a mask, the masked mean over ``max(mask.sum(), 1)``."""
+    nll = _nll(logits, targets)
+    if mask is None:
+        return nll.mean()
+    m = mask.to(torch.float32)
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def chunked_ce_loss(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    targets: torch.Tensor,
+                    mask: torch.Tensor | None) -> torch.Tensor:
+    """Cross-entropy with the unembedding applied one sequence chunk of
+    ``cfg.logits_chunk`` positions at a time, in order, so that only a
+    chunk's logits are live; unchunked when ``logits_chunk <= 0``, when it
+    does not divide S or when it is S. Each chunk's logits are recomputed
+    in the backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``); the sums run in the reference's order."""
+    B, S, D = x.shape
+    ck = cfg.logits_chunk
+    if ck <= 0 or S % ck != 0 or S == ck:
+        return cross_entropy(unembed(params, x, cfg), targets, mask)
+
+    def chunk(xc, tc, mc):
+        nll = _nll(unembed(params, xc, cfg), tc)
+        m = mc.to(torch.float32)
+        return (nll * m).sum(), m.sum()
+
+    ones = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    m_all = ones if mask is None else mask
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // ck):
+        sl = slice(i * ck, (i + 1) * ck)
+        n_c, m_c = _ckpt.checkpoint(chunk, x[:, sl], targets[:, sl],
+                                    m_all[:, sl], use_reentrant=False)
+        nll_sum, m_sum = nll_sum + n_c, m_sum + m_c
+    return nll_sum / torch.clamp(m_sum, min=1.0)

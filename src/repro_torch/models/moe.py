@@ -13,8 +13,9 @@ choice's combine weight zeroed. On one card there is no expert
 parallelism: the JAX package's sharding annotations have no counterpart.
 
 Covers DeepSeek-V2 (2 shared + 160 routed, top-6, softmax gate) and
-Qwen3-MoE (128 routed, top-8, normalized top-k probs). The load-balance
-loss is training's (ROADMAP.md item A13).
+Qwen3-MoE (128 routed, top-8, normalized top-k probs). The Switch-style
+load-balance loss (``aux_load_balance_loss``) is ported with its reference,
+which no loss of either package adds.
 """
 
 from __future__ import annotations
@@ -135,3 +136,15 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.n_shared_experts > 0:
         y = y + mlp(params["shared"], cfg, x)
     return y
+
+
+def aux_load_balance_loss(logits: torch.Tensor, topi: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss: ``n_experts`` x the sum
+    over experts of the mean router probability times the share of tokens
+    whose first choice it is. logits (T, E), topi (T, k)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    me = probs.mean(dim=0)
+    onehot = torch.nn.functional.one_hot(topi[:, 0].long(), n_experts)
+    ce = onehot.to(torch.float32).mean(dim=0)
+    return n_experts * torch.sum(me * ce)

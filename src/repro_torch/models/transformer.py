@@ -19,6 +19,12 @@ is given (in place) and returns it.
 ``TransformerLM`` wraps the parameter tree in an ``nn.Module`` whose
 ``state_dict`` keys are the JAX tree paths joined by ``.`` (for example
 ``stage_0.attn.wq``), so converting weights is name for name.
+
+Training: ``lm_loss`` (the next-token cross-entropy, over the vlm family's
+text tail only) differentiates through every block, the kernels included
+(``kernels._autograd``); ``cfg.remat`` ``"full"`` or ``"dots"`` recomputes
+each layer (a zamba2 segment, an xLSTM segment) in the backward
+(``_maybe_remat``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import hybrid as hybrid_mod
@@ -36,8 +43,8 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (ModelConfig, dense_spec, norm_spec,
                                        store_layer, tree_leaves, tree_map,
                                        tree_set, unstack)
-from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
-                                       rmsnorm, unembed)
+from repro_torch.models.layers import (chunked_ce_loss, embed, embed_specs,
+                                       mlp, mlp_specs, rmsnorm, unembed)
 
 
 # ------------------------------------------------------------- layer plan ----
@@ -77,6 +84,23 @@ def _stack_specs(tree, n: int):
 def _stack_cache_specs(tree, n: int):
     """Cache specs are (shape, dtype, axes) leaves."""
     return tree_map(lambda t: ((n, *t[0]), t[1], ("layers", *t[2])), tree)
+
+
+def _maybe_remat(f, cfg: ModelConfig):
+    """``f`` recomputed in the backward (``torch.utils.checkpoint``, not
+    reentrant) when ``cfg.remat`` is ``"full"`` or ``"dots"``; ``f`` itself
+    otherwise. Numerically neutral. ``"dots"``, the reference's policy of
+    saving the matmul outputs without batch dims, checkpoints the whole
+    layer here: PyTorch has no such policy, and saving less only costs
+    more recompute."""
+    if cfg.remat not in ("full", "dots"):
+        return f
+
+    def remat(*args, **kw):
+        if not torch.is_grad_enabled():
+            return f(*args, **kw)
+        return _ckpt.checkpoint(f, *args, use_reentrant=False, **kw)
+    return remat
 
 
 def _ffn(p, cfg: ModelConfig, h):
@@ -304,12 +328,16 @@ class TransformerLM(nn.Module):
     """The parameter tree as an ``nn.Module``: ``state_dict`` keys are the
     JAX tree paths joined by ``.``, and ``tree()`` gives the nested dict of
     tensors the model functions take. It holds the encoder-decoder family's
-    tree (``models.encdec``) as well. Parameters are inference weights
-    (``requires_grad=False``): training is not ported (ROADMAP.md A13a)."""
+    tree (``models.encdec``) as well. ``requires_grad`` is chosen at
+    construction: ``False`` (serving's inference weights, the default) or
+    ``True`` (trainable: ``train.step`` differentiates the loss in every
+    leaf and updates the leaves in place)."""
 
-    def __init__(self, cfg: ModelConfig, params: dict):
+    def __init__(self, cfg: ModelConfig, params: dict,
+                 requires_grad: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.trainable = requires_grad
         self._tree: dict = {}    # the same Parameters, nested as in JAX
         for path, t in tree_leaves(params):
             module = self
@@ -318,10 +346,11 @@ class TransformerLM(nn.Module):
                 if not hasattr(module, part):
                     module.add_module(part, nn.Module())
                 module = getattr(module, part)
-            param = nn.Parameter(t, requires_grad=False)
+            param = nn.Parameter(t, requires_grad=requires_grad)
             module.register_parameter(name, param)
             tree_set(self._tree, path, param)
-        self._layers = _layer_views(self._tree, cfg)
+        with torch.no_grad():    # serving's views: no autograd history
+            self._layers = _layer_views(self._tree, cfg)
 
     def tree(self) -> dict:
         return self._tree
@@ -359,8 +388,13 @@ def _layer_views(tree: dict, cfg: ModelConfig) -> tuple[list, list | None]:
 
 
 def _layers(params, cfg: ModelConfig) -> tuple[list, list | None]:
-    if isinstance(params, TransformerLM) and params.cfg == cfg:
-        return params._layers   # built once: no per-step view bookkeeping
+    """Per-layer views: built once for serving (no per-step view
+    bookkeeping); made anew for a forward that records gradients, so each
+    step's views carry them into the stacked leaves (and see the last
+    in-place update)."""
+    if (isinstance(params, TransformerLM) and params.cfg == cfg
+            and not (params.trainable and torch.is_grad_enabled())):
+        return params._layers
     return _layer_views(as_tree(params), cfg)
 
 
@@ -406,12 +440,24 @@ def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     kw = {"prefix_len": prefix_len} if prefix_len else {}
     for (kind, _), stage in zip(layer_plan(cfg), stages):
         if kind == "zamba_seg":
-            x = hybrid_mod.zamba_seg_scan(stage, cfg, x, shared)
+            x = hybrid_mod.zamba_seg_scan(stage, cfg, x, shared, _maybe_remat)
             continue
-        fwd = _BLOCKS[kind]["fwd"]
+        fwd = _maybe_remat(_BLOCKS[kind]["fwd"], cfg)
         for lp in stage:
             x = fwd(lp, cfg, x, **kw)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: ``tokens`` (B, S), ``labels`` (B, S) [, ``patches`` (B, P, W),
+    ``mask`` (B, S)] -> the scalar float32 loss; the vlm family's over the
+    text tail only (its hidden states after the P patch positions)."""
+    patches = batch.get("patches")
+    hidden = lm_hidden(params, cfg, batch["tokens"], patches)
+    if cfg.family == "vlm":
+        hidden = hidden[:, patches.shape[1]:, :]
+    return chunked_ce_loss(as_tree(params)["embed"], cfg, hidden,
+                           batch["labels"], batch.get("mask"))
 
 
 def _padded_to_max_len(cfg: ModelConfig) -> bool:

@@ -60,11 +60,13 @@ def test_port_files_are_found():
             "run.py", "games.py", "resilience.py", "selfplay.py",
             "store.py", "serve_games.py", "serve_chaos.py",
             "kernels_micro.py", "quickstart.py", "root_parallel_demo.py",
-            "chaos_serving.py", "trace_serving.py", "serve_mcts.py"} <= names
+            "chaos_serving.py", "trace_serving.py", "serve_mcts.py",
+            "_autograd.py", "adamw.py", "pipeline.py", "step.py", "loop.py",
+            "train.py", "train_lm.py"} <= names
     assert {p.name for p in EXAMPLE_FILES} == {
         "quickstart.py", "root_parallel_demo.py", "serve_games.py",
         "selfplay.py", "chaos_serving.py", "trace_serving.py",
-        "serve_mcts.py"}
+        "serve_mcts.py", "train_lm.py"}
 
 
 # PyTorch's fused attention and norm are the LM kernels' library yardsticks:
@@ -142,7 +144,10 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "benchmarks_torch.run, benchmarks_torch.fig9_mapping, "
             "benchmarks_torch.tpfifo, benchmarks_torch.serve_games, "
             "benchmarks_torch.serve_chaos, benchmarks_torch.selfplay, "
-            "benchmarks_torch.kernels_micro; "
+            "benchmarks_torch.kernels_micro, repro_torch.data.pipeline, "
+            "repro_torch.optim.adamw, repro_torch.train.step, "
+            "repro_torch.train.loop, repro_torch.launch.train, "
+            "repro_torch.checkpoint.store; "
             "from repro_torch.kernels import _build; "
             "assert _build._lib is None; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -268,6 +273,43 @@ def test_lm_serving_entry_points_mean_the_gpu_and_raise_without_one(call):
         pytest.skip("this machine has a GPU; the rule is checked where it has none")
     with pytest.raises(NO_GPU):
         _lm_serving_calls()[call]()
+
+
+def _training_calls():
+    import importlib.util
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import step as tstep
+    mcfg = tconfigs.reduced_config("smollm-135m")
+    spec = importlib.util.spec_from_file_location(
+        "examples_torch_train_lm", ROOT / "examples_torch" / "train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return {
+        "init-params-trainable": lambda: tapi.init_params(
+            mcfg, seed=0, requires_grad=True),
+        "make-state": lambda: tstep.make_state(mcfg),
+        "train": lambda: tloop.train(mcfg, OptConfig(), DataConfig(8, 2),
+                                     tloop.LoopConfig(steps=1),
+                                     log=lambda s: None),
+        "launch-train": lambda: tlaunch.main(["--steps", "1"]),
+        "example-train-lm": lambda: example.main(["--steps", "1",
+                                                  "--ckpt-dir", "unused"]),
+    }
+
+
+@pytest.mark.parametrize("call", ["init-params-trainable", "make-state",
+                                  "train", "launch-train",
+                                  "example-train-lm"])
+def test_training_entry_points_mean_the_gpu_and_raise_without_one(call):
+    """Training runs on CUDA unless told ``device="cpu"`` / ``--device
+    cpu`` (the CPU runs are in tests/test_torch_train_loop.py)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the rule is checked where it has none")
+    with pytest.raises(NO_GPU):
+        _training_calls()[call]()
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -222,16 +222,6 @@ def test_unflatten_like_checks_paths_and_shapes():
         tstore._unflatten_like(t, {**flat, ".visits": torch.zeros(3)})
 
 
-@pytest.mark.parametrize("call", [
-    lambda: tstore.save("x", 0, {}), lambda: tstore.restore("x", 0, {}),
-    lambda: tstore.latest_step("x"), lambda: tstore.step_dir("x", 0),
-    lambda: tstore.AsyncSaver("x")],
-    ids=["save", "restore", "latest_step", "step_dir", "async_saver"])
-def test_checkpoint_store_refuses_naming_a13(call):
-    with pytest.raises(NotImplementedError, match="A13"):
-        call()
-
-
 def test_snapshot_is_a_host_copy_and_restores_fresh_tensors():
     """A snapshot copies (the search writes trees in place, and on the CPU
     ``.numpy()`` would be a view); a restore makes fresh tensors with the
