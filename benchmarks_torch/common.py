@@ -14,6 +14,12 @@ import time
 
 import torch
 
+# the card's peak rates that bound a kernel's time: HBM3 bytes/s, float32
+# and integer operations/s on the CUDA cores, bf16 operations/s on the
+# tensor cores (H100 SXM)
+from repro_torch.roofline.hw import (BF16_TENSOR_OPS_PER_S,  # noqa: F401
+                                     HBM_BYTES_PER_S, OPS_PER_S)
+
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                        "bench_torch")
 
@@ -56,14 +62,6 @@ def device_stamp(device=None):
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     name, limit = (x.strip() for x in rows[index].split(",", 1))
     return {"name": name, "power_limit": limit}
-
-
-# the card's peak rates that bound a kernel's time: HBM3 bytes/s, float32
-# and integer operations/s on the CUDA cores, bf16 operations/s on the
-# tensor cores (H100 SXM)
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float = OPS_PER_S):

@@ -24,8 +24,12 @@ both classes at 256 lanes): ``serve_games`` (TPFIFO against one_per_core,
 pipelined against blocking), ``serve_chaos`` (goodput across fault rates)
 and ``selfplay`` (warm against cold moves); ``kernels_micro`` holds every
 kernel against its plain version at the JAX twin's shapes and times it.
-``roofline_table`` waits for ROADMAP.md item A13b: asking for it by name
-raises.
+``roofline_table`` renders the one-card dry-run's cells
+(``artifacts/dryrun_torch/``, written by ``python -m
+repro_torch.launch.dryrun --all``); with ``--quick`` it first dry-runs one
+reduced cell into ``dryrun_quick/`` beside the job's JSON and renders that.
+``render_experiments`` is the multi-card row of ROADMAP.md: asking for it
+by name raises.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import traceback
 
 from repro_torch.configs.hex_paper import PAPER, TASK_SWEEP
 
-NOT_PORTED = {"roofline_table": "A13b"}
+NOT_PORTED = {"render_experiments": "the multi-card row"}
 
 # the card's configuration: the paper's 11x11 Hex at 256 lanes (the width
 # of every Hex phase of chip_smoke.py), Cp = 1
@@ -48,6 +52,22 @@ SWEEP_PLAYOUTS = 65_536
 HEX_SWEEP = tuple(t for t in TASK_SWEEP if t >= 16)
 GOMOKU_SWEEP = (64, 256, 1024, 4096)
 SEQ_PLAYOUTS = 2048
+# --quick's dry-run cell: smollm-135m's train_4k at tests/test_dryrun.py's
+# reduced widths
+QUICK_CELL = ("smollm-135m", "train_4k")
+QUICK_OVERRIDES = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                       d_ff=512, vocab=4096)
+
+
+def roofline_job(quick: bool) -> dict:
+    from benchmarks_torch import common, roofline_table
+    if not quick:
+        return roofline_table.run()
+    from repro_torch.launch import dryrun
+    out = os.path.join(common.ART_DIR, "dryrun_quick")
+    dryrun.run_cells([(*QUICK_CELL, dryrun.MESH)], out,
+                     cfg_overrides=QUICK_OVERRIDES)
+    return roofline_table.run(out)
 
 
 def jobs_for(quick: bool, device) -> dict:
@@ -86,6 +106,7 @@ def jobs_for(quick: bool, device) -> dict:
                 flash_shapes=((1, 2, 1, 32, 16),), uct_shapes=((16, 32),),
                 hex_shapes=((5, 8),), gomoku_shapes=((5, 4),),
                 rmsnorm_shapes=((16, 64),), iters=2, **dev),
+            "roofline_table": lambda: roofline_job(quick=True),
         }
     hex_kw = dict(**HEX, n_playouts=SWEEP_PLAYOUTS, repeats=3,
                   seq_playouts=SEQ_PLAYOUTS)
@@ -119,6 +140,7 @@ def jobs_for(quick: bool, device) -> dict:
         "serve_chaos": lambda: serve_chaos.run(**serve_chaos.CARD, **dev),
         "selfplay": lambda: selfplay.run(**selfplay.CARD, **dev),
         "kernels_micro": lambda: kernels_micro.run(**dev),
+        "roofline_table": lambda: roofline_job(quick=False),
     }
 
 
@@ -156,7 +178,7 @@ def main(argv=None):
         refused = [k for k in keep if k in NOT_PORTED]
         if refused:
             raise NotImplementedError(", ".join(
-                f"{k}: not ported yet (ROADMAP.md item {NOT_PORTED[k]})"
+                f"{k}: not ported yet ({NOT_PORTED[k]} of ROADMAP.md)"
                 for k in refused))
         jobs = {k: v for k, v in jobs.items() if any(s in k for s in keep)}
 
@@ -381,6 +403,8 @@ def _summ(name: str, res: dict) -> dict:
     if name == "kernels_micro":
         return {k: list(v) for k, v in res.items()
                 if isinstance(v, dict) and k != "device"}
+    if name == "roofline_table":
+        return {"n_ok": res["n_ok"], "n_cells": res["n_cells"]}
     return {}
 
 

@@ -60,7 +60,7 @@ the port's paths:
   search stepped side by side, with the kernels' plain versions;
 - LM serving on the same model: B = 4 token trees searched as one forest
   (``lm_batch``: ``mcts_generate_batch`` of 1 token for 4 prompts of
-  128, 112, 96 and 128 tokens, 64 lanes a member, 256 playouts a token;
+  128, 112, 96 and 128 tokens, 64 lanes a member, 128 playouts a token;
   one ``uct_select`` launch a descent level for all 256 lanes, a masked
   member left empty, run twice bit-identical, kernels against plain
   versions member by member, in turns against 4 single searches), the
@@ -99,13 +99,25 @@ the port's paths:
   backward through its plain version, no plain forward), and gradients
   with the kernels against the plain versions (float32 with flash off and
   on, the bf16 loss, each kernel's gradient at the training shapes in both
-  rmsnorm orders and on both flash bodies).
+  rmsnorm orders and on both flash bodies);
+- three cells of the dry-run's shapes at published widths against their
+  roofline (``lm_roofline``, bf16, flash on, seed-0 weights, only the
+  global batch cut): smollm-135m's train_4k step at 8 x 4,096 tokens,
+  qwen1.5-0.5b's prefill_32k at 1 x 32,768 and llama3-8b's decode_32k step
+  for 8 rows against a 32,768-row cache. Each is counted on ``meta`` by
+  the port's dry-run (``repro_torch.launch.dryrun``: FLOPs, bytes, the
+  roofline terms, the peak of live storages, the kernel calls a step) and
+  timed on the card; no step may beat its compute term or the time to
+  move its arguments and outputs once, the dry-run's peak must lie within
+  0.5-2x of the card's, and each kernel must launch as often as the
+  dry-run called it.
 
 ``lm_kernels`` also holds and times flash attention, rmsnorm and the
 one-tile ``uct_select`` at LM serving's shapes (``new_shapes``), the
 families' (``families_shapes``) and the vlm and encdec models'
-(``vlm_encdec_shapes``), and rmsnorm at the training shape with its
-autograd backward (``rmsnorm_train_shape``).
+(``vlm_encdec_shapes``) and the roofline cells' (``roofline_shapes``),
+and rmsnorm and flash at the training shapes with their autograd
+backwards (``rmsnorm_train_shape``, ``flash_train_shape``).
 
 Each phase prints one JSON line; any failed check ends the run with a
 non-zero exit code. Without a GPU it exits non-zero and prints no result.
@@ -133,16 +145,16 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
+sys.path.insert(0, os.path.join(HERE, "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet). A kernel's bound is
-# the larger of bytes / memory rate and operations / rate; the integer and
-# float32 work of these kernels runs outside the tensor cores, so the rate
-# is the 67 T/s float32 figure.
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-# the same sheet's dense bf16 tensor-core rate: the rate for attention's
-# products on bf16 inputs
-BF16_TENSOR_OPS_PER_S = 989e12
+# published peaks of one H100 SXM (NVIDIA data sheet, the port's
+# roofline.hw). A kernel's bound is the larger of bytes / memory rate and
+# operations / rate; the integer and float32 work of these kernels runs
+# outside the tensor cores, so the rate is the 67 T/s float32 figure; the
+# dense bf16 tensor-core rate is the rate for attention's products on bf16
+# inputs.
+from repro_torch.roofline.hw import (BF16_TENSOR_OPS_PER_S,  # noqa: E402
+                                     HBM_BYTES_PER_S, OPS_PER_S)
 
 # the paper's configuration: 11x11 Hex, 256 lanes, 1024 tasks, fifo, Cp = 1
 FULL = dict(board_size=11, n_workers=256, n_tasks=1024, tree_cap=1 << 18,
@@ -227,12 +239,13 @@ LM_PREFILL_SHAPE = (64, 9, 3, LM_PROMPT_LEN, 64)   # B, H, Hkv, S, d
 LM_DECODE_NORM_SHAPE = (64, 576)                  # W rows of d_model
 # LM serving, on the same model and weights:
 # - lm_batch: B = 4 prompts left-aligned in a (4, 128) matrix (true lengths
-#   128, 112, 96, 128) searched as one forest at the LM_SEARCH width, 256
-#   playouts a token (64 tasks of grain 4 on 64 lanes: one round of 4 sync
-#   iterations), 2 tokens generated by mcts_generate_batch;
+#   128, 112, 96, 128) searched as one forest at the LM_SEARCH width, 128
+#   playouts a token (64 tasks of grain 2 on 64 lanes: one round of 2 sync
+#   iterations; 256 until the lm_roofline phase came), 2 tokens generated
+#   by mcts_generate_batch;
 LM_BATCH_LENS = (128, 112, 96, 128)
 LM_BATCH_TOKENS = 2
-LM_BATCH_PLAYOUTS = 256
+LM_BATCH_PLAYOUTS = 128
 LM_BATCH_MASK = (True, True, False, True)
 # - lm_serve: a Poisson trace (benchmarks_torch.tpfifo.make_trace) of 16
 #   requests, prompts of 16-48 tokens and every third 96-160, 32 new tokens
@@ -379,6 +392,22 @@ LM_TRAIN_GRAD_TOL = 1e-3
 # the training shape of the norm: one microbatch's 4 x 256 rows of d 576
 LM_TRAIN_NORM_SHAPE = (4 * 256, 576)
 LM_TRAIN_FLASH_SHAPE = (4, 9, 3, 256, 64)      # B, H, Hkv, S, d
+# lm_roofline: three cells of the dry-run's shapes at published widths
+# (bf16, seed-0 weights, flash on), only the global batch cut; each counted
+# on meta by the port's dry-run (launch.dryrun) and measured on the card:
+# 1 warm step, then ROOFLINE_STEPS timed (median)
+ROOFLINE_CELLS = (("smollm-135m", "train_4k", 8),
+                  ("qwen1.5-0.5b", "prefill_32k", 1),
+                  ("llama3-8b", "decode_32k", 8))
+ROOFLINE_STEPS = 3
+# the dry-run's peak memory against the card's, as a ratio
+ROOFLINE_PEAK_RATIO = (0.5, 2.0)
+# flash is held against the plain version on every head where the plain
+# float32 scores take at most ROOFLINE_FLASH_PLAIN_BYTES, else on the first
+# ROOFLINE_FLASH_PLAIN_HEADS kv heads' query heads (at the prefill cell's
+# 32,768 tokens a head's scores are 4.3 GB)
+ROOFLINE_FLASH_PLAIN_BYTES = 8e9
+ROOFLINE_FLASH_PLAIN_HEADS = 1
 # logits of the full-width bf16 model (prefill, replay and rollout decode
 # steps), kernels vs plain versions: both round the same values to bf16 in
 # 61 norms and 30 attentions, where a one-ulp difference (2**-8 relative)
@@ -2489,6 +2518,135 @@ def phase_lm_kernels(torch):
 
     rn_train = lm_kernels_train_shape()
 
+    def lm_kernels_flash_train_shape() -> dict:
+        """flash attention at the training shape (one microbatch: 4 x 256
+        tokens, 9 heads over 3, d 64, bf16, bshd) under autograd: the
+        forward (the kernel) and forward + backward (the plain version's
+        gradient, ``kernels._autograd``) each in turns with the library
+        call's on contiguous (B, H, S, d) copies, the plain version's
+        forward + backward, and the backward alone, beside their bounds."""
+        import torch.nn.functional as F
+        from repro_torch.kernels import ops, ref
+        B, H, Hkv, S, d = LM_TRAIN_FLASH_SHAPE
+        bf = torch.bfloat16
+        q, k, v = (torch.randn(B, S, n, d, generator=g, device="cuda").to(bf)
+                   .requires_grad_(True) for n in (H, Hkv, Hkv))
+        cot = torch.randn(B, S, H, d, generator=g, device="cuda").to(bf)
+        qc, kc, vc = (t.detach().transpose(1, 2).contiguous()
+                      .requires_grad_(True) for t in (q, k, v))
+        cot_c = cot.transpose(1, 2).contiguous()
+        call = lambda a, b, c: ops.flash_attention(a, b, c, causal=True)
+        lib = lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True)
+        with torch.no_grad():
+            ms, lib_ms = time_pair_ms(lambda: call(q, k, v), lib)
+        plain = lambda: ref.flash_attention(*(t.transpose(1, 2)
+                                              for t in (q, k, v)), causal=True)
+        fb = lambda: torch.autograd.grad(call(q, k, v), (q, k, v), cot)
+        lib_fb = lambda: torch.autograd.grad(lib(), (qc, kc, vc), cot_c)
+        fb_ms, lib_fb_ms = time_pair_ms(fb, lib_fb, iters=50)
+        plain_fb_ms = time_ms(lambda: torch.autograd.grad(
+            plain(), (q, k, v), cot_c), iters=50)
+        out = call(q, k, v)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), cot, retain_graph=True), iters=50)
+        rows, kv_rows = B * H * S * d, B * Hkv * S * d
+        pairs = B * H * (S * (S + 1) // 2) * d
+        # forward: q, k, v read, o written, the causal pairs' two products;
+        # backward: q, k, v, o and dO read, dq, dk, dv written, five
+        # products (the scores again, dP, dV, dQ, dK)
+        fwd_bytes, bwd_bytes = 2 * (2 * rows + 2 * kv_rows), \
+            2 * (4 * rows + 4 * kv_rows)
+        bound, by = bound_ms(fwd_bytes, 4 * pairs, BF16_TENSOR_OPS_PER_S)
+        fb_bound, fb_by = bound_ms(fwd_bytes + bwd_bytes, 14 * pairs,
+                                   BF16_TENSOR_OPS_PER_S)
+        return {"shape": [B, H, Hkv, S, d], "dtype": "bfloat16",
+                "layout": "bshd", "ms": ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by,
+                "forward_backward_ms": fb_ms,
+                "library_forward_backward_ms": lib_fb_ms,
+                "plain_forward_backward_ms": plain_fb_ms,
+                "forward_backward_bound_ms": fb_bound,
+                "forward_backward_bound_by": fb_by, "backward_ms": bwd_ms,
+                "backward": "the plain version's gradient (kernels._autograd)"}
+
+    fa_train = lm_kernels_flash_train_shape()
+
+    def lm_kernels_roofline_shapes() -> dict:
+        """rmsnorm and flash attention at the shapes the lm_roofline cells
+        give them (``roofline_kernel_shapes``), each held against its plain
+        version there and timed (in turns with the library call; the
+        iterations scaled down with the work) beside its bound. Flash at
+        32,768 tokens is held against the plain version on a slice of its
+        heads (ROOFLINE_FLASH_PLAIN_BYTES); its plain time is that
+        slice's."""
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa, ops, ref
+        bf = torch.bfloat16
+        norms, flashes = roofline_kernel_shapes()
+        out = {"rmsnorm": [], "flash_attention": []}
+        for N, D, of in norms:
+            x = (3 * torch.randn(N, D, generator=g, device="cuda")).to(bf)
+            w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+            call = lambda: ops.rmsnorm(x, w, 1e-5, order="model")
+            plain = lambda: ref.rmsnorm(x, w, 1e-5, order="model")
+            lib = lambda: F.rms_norm(x, (D,), w, 1e-5)
+            apart = bf16_steps(torch, call(), plain())
+            share, steps = float((apart > 0).float().mean()), int(apart.max())
+            check(share <= RMSNORM_BF16_SHARE
+                  and steps <= RMSNORM_BF16_STEPS["model"],
+                  f"rmsnorm at ({N}, {D}): {share:.4%} of elements differ, "
+                  f"up to {steps} bf16 steps")
+            ms, lib_ms = time_pair_ms(call, lib, iters=50, warmup=5, pairs=4)
+            bound, by = bound_ms(2 * (2 * N * D + D), 4 * N * D, OPS_PER_S)
+            out["rmsnorm"].append({
+                "shape": [N, D], "of": of, "dtype": "bfloat16",
+                "order": "model", "share_differing": share,
+                "max_bf16_steps": steps, "ms": ms,
+                "plain_ms": time_ms(plain, iters=10, warmup=2, reps=3),
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+        for (B, H, Hkv, S, d), of in flashes:
+            q, k, v = (torch.randn(B, S, n, d, generator=g, device="cuda")
+                       .to(bf) for n in (H, Hkv, Hkv))
+            body = fa.body_for(q.dtype, d)
+            call = lambda: ops.flash_attention(q, k, v, causal=True)
+            before = dict(fa.flash_attention.launches_by_body)
+            got = call()
+            check(fa.flash_attention.launches_by_body[body] == before[body] + 1,
+                  f"flash_attention at {(B, H, Hkv, S, d)}: not the {body} body")
+            G = H // Hkv
+            kvh = (Hkv if B * H * S * S * 4 <= ROOFLINE_FLASH_PLAIN_BYTES
+                   else ROOFLINE_FLASH_PLAIN_HEADS)
+            qh, kh, vh = (t[:, :, :n].transpose(1, 2)
+                          for t, n in ((q, kvh * G), (k, kvh), (v, kvh)))
+            plain = lambda: ref.flash_attention(qh, kh, vh, causal=True)
+            err = float((got[:, :, :kvh * G].float()
+                         - plain().transpose(1, 2).float()).abs().max())
+            check(err <= FLASH_TOL["bfloat16"],
+                  f"flash_attention at {(B, H, Hkv, S, d)}: max abs err {err} "
+                  f"above {FLASH_TOL['bfloat16']}")
+            del got
+            qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True)
+            iters = max(2, 20 * 4096 ** 2 // S ** 2)
+            ms, lib_ms = time_pair_ms(call, lib, iters=iters, warmup=2,
+                                      pairs=4)
+            n_bytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+            n_ops = 4 * B * H * (S * (S + 1) // 2) * d
+            bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S)
+            out["flash_attention"].append({
+                "shape": [B, H, Hkv, S, d], "of": of, "dtype": "bfloat16",
+                "layout": "bshd", "body": body, "max_abs_err": err,
+                "plain_heads": kvh * G, "ms": ms,
+                "plain_ms": time_ms(plain, iters=2, warmup=1, reps=3),
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+            del q, k, v, qc, kc, vc
+        torch.cuda.empty_cache()
+        return out
+
+    roofline_shapes = lm_kernels_roofline_shapes()
+
     def lm_kernels_new_shapes() -> dict:
         """The LM kernels at the shapes LM serving gives them, each held
         against its plain version there and timed eagerly, in a CUDA graph
@@ -2670,7 +2828,9 @@ def phase_lm_kernels(torch):
          "bodies": {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores},
          "new_shapes": new_shapes["flash_attention"],
          "families_shapes": families_shapes["flash_attention"],
-         "vlm_encdec_shapes": ve_shapes["flash_attention"]},
+         "vlm_encdec_shapes": ve_shapes["flash_attention"],
+         "train_shape": fa_train,
+         "roofline_shapes": roofline_shapes["flash_attention"]},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:19",
@@ -2687,7 +2847,8 @@ def phase_lm_kernels(torch):
          "train_shape": rn_train,
          "new_shapes": new_shapes["rmsnorm"],
          "families_shapes": families_shapes["rmsnorm"],
-         "vlm_encdec_shapes": ve_shapes["rmsnorm"]},
+         "vlm_encdec_shapes": ve_shapes["rmsnorm"],
+         "roofline_shapes": roofline_shapes["rmsnorm"]},
     ]
     emit("lm_kernels", flash_attention=flash, rmsnorm=norm,
          timed={r["name"]: {k: r[k] for k in (
@@ -2698,8 +2859,9 @@ def phase_lm_kernels(torch):
          rmsnorm_prefill={k: records[1][k] for k in (
              "prefill_shape", "prefill_in_graph_ms", "prefill_bound_ms",
              "prefill_library_in_graph_ms")}, rmsnorm_train_shape=rn_train,
+         flash_train_shape=fa_train,
          new_shapes=new_shapes, families_shapes=families_shapes,
-         vlm_encdec_shapes=ve_shapes)
+         vlm_encdec_shapes=ve_shapes, roofline_shapes=roofline_shapes)
     return records, new_shapes["uct_select"]
 
 
@@ -3164,10 +3326,11 @@ def batch_vs_singles(torch, params, mcfg, dcfg, prompts, lens, key):
 def phase_lm_batch(torch, model=None):
     """B = 4 token trees searched as one forest (``mcts_generate_batch``)
     on SmolLM-135M at its published width: 1 token for 4 prompts of true
-    lengths 128, 112, 96 and 128 in one (4, 128) matrix, W = 64, 256
-    playouts a token. Checks: root visits == 256 on every member, the
-    forest's invariants, a masked member left at one node with best token
-    -1, the generation run twice bit-identical, kernels against plain
+    lengths 128, 112, 96 and 128 in one (4, 128) matrix, W = 64,
+    LM_BATCH_PLAYOUTS a token. Checks: root visits == LM_BATCH_PLAYOUTS on
+    every member, the forest's invariants, a masked member left at one
+    node with best token -1, the generation run twice bit-identical,
+    kernels against plain
     versions over the whole batched search, one ``uct_select`` launch a
     descent level for all B·W lanes, one flash prefill (30 launches) a
     search."""
@@ -4615,6 +4778,166 @@ def phase_lm_train(torch):
     return launches, counts["flash_by_body"]
 
 
+def roofline_kernel_shapes():
+    """The shapes the lm_roofline cells give the kernels: rmsnorm's (rows,
+    D, cell) and flash attention's ((B, H, Hkv, S, d), cell)."""
+    from repro_torch.configs import SHAPES, get_config
+    norms, flashes = [], []
+    for arch, shape_name, batch in ROOFLINE_CELLS:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        of = f"{arch} {shape_name}"
+        rows = batch * (1 if shape.kind == "decode" else shape.seq_len)
+        norms.append((rows, cfg.d_model, of))
+        if shape.kind != "decode":
+            flashes.append(((batch, cfg.n_heads, cfg.n_kv_heads,
+                             shape.seq_len, cfg.hd), of))
+    return norms, flashes
+
+
+def roofline_inputs(torch, spec):
+    """The card's arguments for a dry-run cell's step (``launch.inputs.
+    input_specs``): seed-0 weights (a trainable state with zero moments for
+    a train cell), seeded tokens, a zeroed cache of the cell's length; for
+    a decode cell, one (B,) position tensor a step, near the cache's end
+    (the attention reads every row whatever its value)."""
+    from repro_torch.models import api
+    from repro_torch.train import step as step_mod
+    cfg, shape = spec["cfg"], spec["shape"]
+    g = torch.Generator(device="cuda").manual_seed(23)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = lambda *sh: torch.randint(0, cfg.vocab, sh, generator=g,
+                                       device="cuda", dtype=torch.int32)
+    if shape.kind == "train":
+        state = step_mod.make_state(cfg, 0, spec["moment_dtype"], "cuda")
+        batch = {"tokens": tokens(B, S), "labels": tokens(B, S),
+                 "mask": torch.ones(B, S, device="cuda")}
+        return [(state, batch)] * (1 + ROOFLINE_STEPS)
+    params = api.init_params(cfg, 0, "cuda")
+    if shape.kind == "prefill":
+        return [(params, {"tokens": tokens(B, S)})] * (1 + ROOFLINE_STEPS)
+    cache = api.init_cache(cfg, B, S, device="cuda")
+    return [(params, tokens(B, 1),
+             torch.full((B,), S - 1 - ROOFLINE_STEPS + i, dtype=torch.int32,
+                        device="cuda"), cache)
+            for i in range(1 + ROOFLINE_STEPS)]
+
+
+def phase_lm_roofline(torch):
+    """Three cells of the dry-run at published widths measured against
+    their roofline (ROOFLINE_CELLS: smollm-135m train_4k, qwen1.5-0.5b
+    prefill_32k, llama3-8b decode_32k; bf16, flash on, ``tune_for_shape``'s
+    knobs, only the global batch cut). Each cell is first counted on
+    ``meta`` by the port's own dry-run (``launch.dryrun.analyze_cell``:
+    FLOPs, bytes, the roofline terms with the H100's peaks, the peak of
+    live storages, the kernel calls), then run on the card: 1 warm step and
+    ROOFLINE_STEPS timed ones (host clock around synchronised steps; the
+    median). Checks: no step shorter than its compute term or than reading
+    its arguments and writing its outputs once at the memory rate; the
+    dry-run's peak within ROOFLINE_PEAK_RATIO of the card's (above the
+    memory held before the cell); each kernel launched as often as the
+    dry-run called it, every step, and its backward through the plain
+    version as often (flash on the tensor cores; rmsnorm in every cell,
+    flash in train and prefill)."""
+    import statistics
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    cells, total, bodies = [], {}, {}
+    for arch, shape_name, batch in ROOFLINE_CELLS:
+        t0 = time.perf_counter()
+        cut = {"global_batch": batch}
+        res = dryrun.analyze_cell(arch, shape_name,
+                                  cfg_overrides={"use_flash": True},
+                                  shape_overrides=cut)
+        count_s = time.perf_counter() - t0
+        step, _, spec = dryrun.build_cell(arch, shape_name,
+                                          {"use_flash": True}, cut)
+        shape, r, mem = spec["shape"], res["roofline"], res["memory"]
+        calls = res["kernels"]["calls"]
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        steps_args = roofline_inputs(torch, spec)
+        counters, plain = lm_train_counters()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with plain, torch.set_grad_enabled(shape.kind == "train"):
+            for args in steps_args:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                del out
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = read_train_counters(counters, plain)
+        del steps_args, args
+        torch.cuda.empty_cache()
+        n = 1 + ROOFLINE_STEPS
+        launches = {k: counts[k]["launches"] for k in calls}
+        backwards = {k: counts[k]["plain_backwards"] for k in calls}
+        check(launches == {k: n * c for k, c in calls.items()}
+              and backwards == {k: n * c for k, c in
+                                res["kernels"]["plain_backwards"].items()}
+              and counts["flash_by_body"]["cuda_cores"] == 0,
+              f"lm_roofline {arch} {shape_name}: launches {counts} over {n} "
+              f"steps, the dry-run's calls {res['kernels']} a step")
+        check(calls["rmsnorm"] > 0 and (calls["flash_attention"] > 0)
+              == (shape.kind != "decode"),
+              f"lm_roofline {arch} {shape_name}: kernel calls {calls}")
+        check(all(counts[k]["plain_forwards"] == 0 for k in calls),
+              f"lm_roofline {arch} {shape_name}: a plain forward ran")
+        measured = statistics.median(times[1:])
+        compute_s, memory_s = r["compute_s"], r["memory_s"]
+        io_s = (mem["argument_bytes"] + mem["output_bytes"]) / HBM_BYTES_PER_S
+        check(min(times[1:]) >= max(compute_s, io_s),
+              f"lm_roofline {arch} {shape_name}: a step of {min(times[1:])} s "
+              f"under its compute term {compute_s} s or its argument and "
+              f"output bytes' {io_s} s")
+        est = mem["peak_bytes_per_chip"]
+        lo, hi = ROOFLINE_PEAK_RATIO
+        check(lo <= est / peak <= hi,
+              f"lm_roofline {arch} {shape_name}: the dry-run's peak {est} B "
+              f"against the card's {peak} B")
+        total = add_counts(total, launches)
+        bodies = add_counts(bodies, counts["flash_by_body"])
+        cells.append({
+            "arch": arch, "shape": shape_name, "kind": shape.kind,
+            "seq_len": shape.seq_len, "global_batch": batch,
+            "reduced": {"global_batch": [SHAPES[shape_name].global_batch,
+                                         batch]},
+            "config": {k: getattr(spec["cfg"], k) for k in (
+                "param_dtype", "use_flash", "remat", "logits_chunk",
+                "attn_chunk")},
+            "n_microbatches": spec.get("n_microbatches"),
+            "n_params": res["n_params"],
+            "flops": r["flops_per_chip"],
+            "matmul_flops": res["cost"]["matmul_flops"],
+            "bytes": res["cost"]["parsed_bytes_upper_bound"],
+            "bytes_major": r["hbm_bytes_per_chip"],
+            "model_flops": r["model_flops_global"],
+            "attn_flops": r["attn_flops_global"],
+            "compute_ms": 1e3 * compute_s, "memory_ms": 1e3 * memory_s,
+            "roofline_ms": 1e3 * r["step_time_s"],
+            "bottleneck": r["bottleneck"],
+            "io_ms": 1e3 * io_s,
+            "measured_ms": 1e3 * measured,
+            "steps_ms": [1e3 * t for t in times],
+            "roofline_share": r["step_time_s"] / measured,
+            "mfu": r["model_flops_global"] / (BF16_TENSOR_OPS_PER_S
+                                              * measured),
+            "peak_estimate_mb": est / 2**20, "peak_measured_mb": peak / 2**20,
+            "peak_ratio": est / peak,
+            "launches": launches, "launches_a_step": calls,
+            "plain_backwards": backwards,
+            "dryrun_count_s": count_s})
+    emit("lm_roofline", cells=cells,
+         peaks={"bf16_flops_per_s": BF16_TENSOR_OPS_PER_S,
+                "hbm_bytes_per_s": HBM_BYTES_PER_S},
+         phase_seconds=time.perf_counter() - t_phase)
+    return total, bodies
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
@@ -4629,8 +4952,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device: this script measures the port on "
               "a GPU and does not fall back to the CPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(HERE, "src"))
-    import repro_torch  # noqa: F401  (fails here if the port is missing)
 
     t0 = time.perf_counter()
     smi = phase_env(torch)
@@ -4665,9 +4986,10 @@ def main(argv=None) -> int:
     families_launches, families_bodies = phase_lm_families(torch)
     ve_launches, ve_bodies = phase_lm_vlm_encdec(torch)
     train_launches, train_bodies = phase_lm_train(torch)
+    roofline_launches, roofline_bodies = phase_lm_roofline(torch)
     flash_by_body = add_counts(flash_by_body, batch_bodies, serve_bodies,
                                mcts_bodies, families_bodies, ve_bodies,
-                               train_bodies)
+                               train_bodies, roofline_bodies)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
@@ -4675,9 +4997,9 @@ def main(argv=None) -> int:
         # select_descent on Gomoku (its playout has no kernel); uct_select
         # (the LM descent's tile), flash_attention and rmsnorm on the LM
         # search, the batched search, the LM engines, the families, the
-        # vlm and encdec models and training (flash and rmsnorm: the
-        # forward's launches); hex_winner judges filled boards, which no
-        # path asks for
+        # vlm and encdec models, training and the roofline cells (flash and
+        # rmsnorm: the forward's launches); hex_winner judges filled
+        # boards, which no path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
                    "hex_forest": forest_launches.get(r["name"], 0),
@@ -4689,7 +5011,8 @@ def main(argv=None) -> int:
                    "lm_mcts_serve": mcts_serve_launches.get(r["name"], 0),
                    "lm_families": families_launches.get(r["name"], 0),
                    "lm_vlm_encdec": ve_launches.get(r["name"], 0),
-                   "lm_train": train_launches.get(r["name"], 0)}
+                   "lm_train": train_launches.get(r["name"], 0),
+                   "lm_roofline": roofline_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():

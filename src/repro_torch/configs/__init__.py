@@ -2,8 +2,8 @@
 
 Port of ``repro.configs``' registry: the dense GQA transformers, the MoE
 models (Qwen3-MoE; DeepSeek-V2 with MLA), the zamba2 hybrid, xLSTM, the
-vlm (PaliGemma) and the encoder-decoder (SeamlessM4T). The JAX package's
-``configs.shapes`` belongs to ROADMAP.md item A13b.
+vlm (PaliGemma) and the encoder-decoder (SeamlessM4T). ``configs.shapes``
+holds the dry-run's four input shapes and which cells run.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from repro_torch.configs import (deepseek_v2_236b, llama3_8b, paligemma_3b,
                                  qwen3_moe_235b, qwen15_05b, qwen15_4b,
                                  seamless_m4t_medium, smollm_135m,
                                  xlstm_1p3b, zamba2_7b)
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec,  # noqa: F401
+                                        applicable, tune_for_shape)
 from repro_torch.models.common import ModelConfig
 
 _REGISTRY: dict[str, ModelConfig] = {

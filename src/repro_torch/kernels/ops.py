@@ -16,6 +16,10 @@ Call sites (``core/gscpm.py``, ``core/hex.py``, ``core/gomoku.py``, ``models/att
 ``models/layers.py``, ``serve/mcts_decode.py``) go through these wrappers
 only.
 
+While a roofline count runs (``roofline.op_costs``, a step on ``meta``
+tensors), ``rmsnorm`` and ``flash_attention`` calls off the card go to the
+count, which charges each as its kernel (``_costs``).
+
 Training differentiates through ``rmsnorm`` and ``flash_attention`` on
 both paths: on the card the forward is still the kernel and the backward
 the plain version's gradient (``kernels._autograd``), on the CPU autograd
@@ -35,6 +39,10 @@ from repro_torch.kernels import select_descent as _sd
 from repro_torch.kernels import uct_select as _us
 
 _force_plain = False
+# the roofline count running on this process (``roofline.op_costs.OpCosts``
+# sets it while it counts a ``meta`` step): flash_attention and rmsnorm
+# calls off the card go to it, to be charged as their kernels
+_costs = None
 
 
 @contextlib.contextmanager
@@ -146,6 +154,8 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
     if q.is_cuda and not _force_plain:
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                    layout=layout)
+    if _costs is not None:
+        return _costs.flash_attention(q, k, v, causal, scale, layout)
     bshd = layout == "bshd"
     if bshd:
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
@@ -158,4 +168,6 @@ def rmsnorm(x, w, eps: float = 1e-5, order: str = "kernel"):
     kernel's rounding) or ``"model"`` (the JAX models' ``layers.rmsnorm``)."""
     if x.is_cuda and not _force_plain:
         return _rn.rmsnorm(x, w, eps=eps, order=order)
+    if _costs is not None:
+        return _costs.rmsnorm(x, w, eps, order)
     return _ref.rmsnorm(x, w, eps=eps, order=order)

@@ -190,10 +190,13 @@ def check_positions(pos, Smax: int) -> None:
     host read). The JAX package's per-row ``dynamic_update_slice`` clamps a
     start that is out of range; the search never produces one, so here it
     is an error. A decode step checks once (``transformer.lm_decode``), not
-    once per layer and cache leaf."""
+    once per layer and cache leaf. A ``meta`` tensor (the dry-run's,
+    ``launch.dryrun``) has no values to check."""
     if isinstance(pos, int):
         if not 0 <= pos < Smax:
             raise IndexError(f"decode position {pos} outside [0, {Smax})")
+    elif pos.is_meta:
+        return
     elif not bool(((pos >= 0) & (pos < Smax)).all()):
         raise IndexError(f"decode positions outside [0, {Smax})")
 

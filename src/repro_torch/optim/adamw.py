@@ -90,12 +90,15 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     read from a host-made table of every step from warmup to the end (past
     the end it stays at its last value), so that the card and the CPU give
     the reference's bits: no two libraries' float32 cosines agree in every
-    last bit."""
+    last bit. The table's entry is read on the device (``index_select``):
+    indexing with a 0-d tensor would read the step on the host, a sync in
+    every training step on the card, and an error on ``meta``."""
     stepf = step.to(torch.float32)
     warm = cfg.lr * stepf / max(1, cfg.warmup_steps)
     table = _decay_table_on(cfg, step.device)
     idx = torch.clamp(step.long() - cfg.warmup_steps, 0, table.shape[0] - 1)
-    return torch.where(stepf < cfg.warmup_steps, warm, table[idx])
+    decay = table.index_select(0, idx.reshape(1)).reshape(step.shape)
+    return torch.where(stepf < cfg.warmup_steps, warm, decay)
 
 
 def init_opt_state(params, moment_dtype="float32") -> dict:

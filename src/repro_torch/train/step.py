@@ -44,14 +44,19 @@ def make_state(cfg: ModelConfig, seed: int = 0,
             "opt": adamw.init_opt_state(params, moment_dtype)}
 
 
-def abstract_state(cfg: ModelConfig, moment_dtype: str = "float32") -> dict:
+def abstract_state(cfg: ModelConfig, moment_dtype: str = "float32",
+                   trainable: bool = False) -> dict:
     """The state tree as ``meta`` tensors (no memory): a restore's
-    template."""
+    template. ``trainable``: the params a ``TransformerLM`` whose leaves
+    require grad, as ``make_state``'s do (the dry-run's train step)."""
     params = api.abstract_params(cfg)
+    if trainable:
+        params = TransformerLM(cfg, params, requires_grad=True)
     mdt = torch_dtype(moment_dtype)
     mom = lambda p: torch.empty(p.shape, dtype=mdt, device="meta")
+    tree = as_tree(params)
     return {"params": params,
-            "opt": {"m": tree_map(mom, params), "v": tree_map(mom, params),
+            "opt": {"m": tree_map(mom, tree), "v": tree_map(mom, tree),
                     "step": torch.empty((), dtype=torch.int32,
                                         device="meta")}}
 

@@ -155,7 +155,8 @@ def test_table2_fig9_and_root_parallel_run_on_the_cpu():
     assert "multi-card" in rp["sharded_forest"]["skipped"]
 
 
-@pytest.mark.parametrize("job,item", [("roofline_table", "A13")])
+@pytest.mark.parametrize("job,item", [("render_experiments",
+                                      "multi-card row")])
 def test_run_refuses_the_jobs_of_other_items(job, item):
     with pytest.raises(NotImplementedError, match=item):
         run.main(["--only", f"fig5,{job}", "--device", "cpu"])
