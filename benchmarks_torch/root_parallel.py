@@ -15,9 +15,14 @@ the root. On the card ``chip_smoke.py``'s forest runs 32-lane members on
 
 Paired repeats, as in the JAX twin: each repeat times the single tree and
 every ensemble size back to back and the speedup is the median of the
-PAIRED ratios. The JAX twin's ``sharded_forest`` point (the forest
-sharded over devices) belongs to the multi-card arm, which the port does
-not have yet: the payload says so instead of measuring it.
+PAIRED ratios. The ``sharded_forest`` point is the JAX twin's: the forest
+sharded over an ensemble mesh against ``shard="off"``, both in one process
+(the port's mesh is a list of devices, so no subprocess is needed): over
+every visible card when the host has several, else over virtual shards of
+the run's device. The two merged best moves must be equal and the sharded
+run must report ``sharded``; both rates are reported. One thread
+dispatches every shard, so on one card the sharded rate is a cost, not a
+gain.
 
     PYTHONPATH=src python -m benchmarks_torch.root_parallel
 """
@@ -27,14 +32,13 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch
+
 from repro_torch import rng
 from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
 from repro_torch.core.root_parallel import gscpm_search_batch
 
 from benchmarks_torch.common import device_stamp, resolve_device, save_result
-
-MULTI_CARD = ("not measured: the multi-card forest is not ported yet "
-              "(ROADMAP.md item A7, its multi-card row)")
 
 
 def run(n_playouts: int = 4096, n_workers: int = 1, board_size: int = 5,
@@ -104,7 +108,72 @@ def run(n_playouts: int = 4096, n_workers: int = 1, board_size: int = 5,
         "single_tree_playouts_per_s": base_rate,
         "single_tree_rates": single_rates,
         "ensemble": points,
-        "sharded_forest": {"skipped": MULTI_CARD},
+        "sharded_forest": sharded_forest(
+            n_playouts=min(n_playouts, 1024), repeats=2, device=device),
+    }
+
+
+def sharded_forest(n_playouts: int = 1024, n_trees: int = 8,
+                   board_size: int = 5, n_tasks: int = 8,
+                   n_workers: int = 1, tree_cap: int | None = None,
+                   seed: int = 0, repeats: int = 3, n_devices: int = 8,
+                   device=None) -> dict:
+    """The forest sharded over an ensemble mesh against the one-device
+    search, timed in turns (off, sharded, sharded, off, ...): the mesh is
+    every visible card when the host has several and ``device`` is
+    ``"cuda"`` (or None), else ``n_devices`` virtual shards of
+    ``device``. The merged best move must agree (the bit-identity contract
+    of tests/test_torch_forest_sharding.py, smoked on every run)."""
+    device = resolve_device(device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    devices = (None if cards > 1 and device.index is None
+               else [device] * n_devices)
+    cfg = GSCPMConfig(board_size=board_size, n_playouts=n_playouts,
+                      n_tasks=n_tasks, n_workers=n_workers,
+                      tree_cap=tree_cap or max(512, n_playouts // 8))
+    board = cfg.game_obj.init_board(device)
+    key = rng.key(seed, device)
+
+    def one(shard):
+        _, st = gscpm_search_batch(
+            board, 1, cfg, key, n_trees=n_trees, shard=shard,
+            device=device if shard == "off" else devices)
+        return st
+
+    one("off")                      # warm the allocator and every launch
+    one("require")
+    runs = {"off": [], "require": []}
+    for rep_ in range(repeats):
+        for shard in (("off", "require") if rep_ % 2 == 0
+                      else ("require", "off")):
+            runs[shard].append(one(shard))
+
+    def point(stats):
+        rates = sorted(s["playouts_per_s"] for s in stats)
+        st = stats[-1]
+        return {"sharded": st["sharded"], "n_devices": st["n_devices"],
+                "mesh_shape": st["mesh_shape"],
+                "padded_members": st["padded_members"],
+                "playouts": st["playouts"],
+                "playouts_per_s": rates[len(rates) // 2],
+                "best_move_sum": st["best_move_sum"],
+                "best_move_vote": st["best_move_vote"]}
+
+    single, sharded = point(runs["off"]), point(runs["require"])
+    assert sharded["sharded"] is True, "sharded point ran unsharded"
+    assert single["sharded"] is False
+    assert sharded["best_move_sum"] == single["best_move_sum"]
+    assert sharded["playouts"] == single["playouts"]
+    return {
+        "config": {"n_playouts": n_playouts, "n_trees": n_trees,
+                   "board_size": board_size, "n_tasks": n_tasks,
+                   "n_workers": n_workers, "repeats": repeats,
+                   "n_devices": sharded["n_devices"],
+                   "virtual_shards": devices is not None},
+        "single_device": single,
+        "sharded": sharded,
+        "speedup_vs_single_device": (sharded["playouts_per_s"]
+                                     / max(single["playouts_per_s"], 1e-9)),
     }
 
 
@@ -123,7 +192,11 @@ def main(argv=None):
         print(f"E={e:>2} trees:  {pt['playouts_per_s']:9.0f} playouts/s   "
               f"aggregate {pt['aggregate_speedup']:5.2f}x   "
               f"batching efficiency {pt['batching_efficiency']:5.1%}")
-    print(f"sharded forest: {out['sharded_forest']['skipped']}")
+    sf = out["sharded_forest"]
+    print(f"sharded forest over {sf['sharded']['n_devices']} shards: "
+          f"{sf['sharded']['playouts_per_s']:9.0f} playouts/s against "
+          f"{sf['single_device']['playouts_per_s']:9.0f} on one device "
+          f"({sf['speedup_vs_single_device']:5.2f}x)")
     print("->", save_result("root_parallel", out))
     return out
 

@@ -28,8 +28,8 @@ kernel against its plain version at the JAX twin's shapes and times it.
 (``artifacts/dryrun_torch/``, written by ``python -m
 repro_torch.launch.dryrun --all``); with ``--quick`` it first dry-runs one
 reduced cell into ``dryrun_quick/`` beside the job's JSON and renders that.
-``render_experiments`` is the multi-card row of ROADMAP.md: asking for it
-by name raises.
+``render_experiments`` is the multi-card row of ROADMAP.md (A14b): asking
+for it by name raises.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ import traceback
 
 from repro_torch.configs.hex_paper import PAPER, TASK_SWEEP
 
-NOT_PORTED = {"render_experiments": "the multi-card row"}
+NOT_PORTED = {"render_experiments": "the multi-card row (ROADMAP.md A14b)"}
 
 # the card's configuration: the paper's 11x11 Hex at 256 lanes (the width
 # of every Hex phase of chip_smoke.py), Cp = 1

@@ -38,6 +38,15 @@ the port's paths:
   after every move, and at 8,192 playouts a member that each member equals
   ``gscpm_search`` with its member key, that kernels equal the plain
   versions and that the forest run twice is bit-identical;
+- the same forest sharded over an ensemble mesh (``hex_forest_sharded``,
+  16,384 playouts a member, root sync every 4 rounds): on one device, then
+  on 2 and 3 virtual shards of the card (3 pads one member) and on every
+  card when the host has several, each sharded run equal to the one-device
+  run in every forest field and in its merged answers, ``select_descent``
+  and ``hex_playout`` launched once a shard a sync iteration; a warm move
+  after ``reroot_forest`` on 2 shards, the rates in turns (2,048 playouts a
+  member), metrics on at that budget on 2 shards, and a forest tenant of
+  4 x 8,192 served over 2 shards equal to the batch search;
 - Gomoku on the 15x15 board: a 65,536-playout search on 256 lanes, then
   ``reroot_tree`` and a warm second move, its descent through
   ``select_descent`` (225 children a node), kernels against plain versions,
@@ -190,6 +199,20 @@ FOREST_TREES = 8
 FOREST_PLAYOUTS = (65_536, 16_384, 16_384)
 # the forest's checks: 4 members at 8,192 playouts each
 FOREST_CHECK = dict(n_trees=4, n_playouts=8192)
+# the forest sharded over an ensemble mesh (hex_forest_sharded): the same
+# FOREST at 16,384 playouts a member, root sync every 4 rounds, on one
+# device, then on 2 and 3 virtual shards of the card (8 members on 3 shards
+# pad one) and on every card when there are several; a warm move (2,048
+# playouts a member after reroot_forest) on 2 shards; the rates in turns at
+# 2,048 playouts a member, then metrics on at that budget on 2 shards; a
+# served forest tenant of 4 x 8,192 (the serving engine's lanes) over 2
+# shards
+SHARDED_PLAYOUTS = 16_384
+SHARDED_MERGE_EVERY = 4
+SHARDED_VIRTUAL = (2, 3)
+SHARDED_WARM_PLAYOUTS = 2048
+SHARDED_TURN_PLAYOUTS = 2048
+SHARDED_SERVE = dict(n_trees=4, n_playouts=8192, shards=2)
 # Gomoku: free-style, the standard 15x15 board, one tree of 256 lanes,
 # 65,536 playouts in 256 tasks, then a re-rooted warm second move
 GOMOKU = dict(game="gomoku", board_size=15, n_workers=256, n_tasks=256,
@@ -1640,6 +1663,217 @@ def phase_hex_forest(torch):
                  "members_parted": parted,
                  "first_divergent_pick": explained})
     return launches, total_playouts / total_s
+
+
+# --------------------------------------------------------- sharded forest ----
+def sharded_launches_checked(counters, n_shards: int, iterations: int,
+                             what: str) -> dict:
+    """The search counters after a sharded run: ``select_descent`` and
+    ``hex_playout`` once a shard a sync iteration, the one-tile kernels
+    never."""
+    launches = {name: c.launches for name, c in counters.items()}
+    for name in ("select_descent", "hex_playout"):
+        check(launches[name] == n_shards * iterations,
+              f"{what}: {name} launches {launches[name]} != {n_shards} "
+              f"shards x {iterations} sync iterations")
+    check(launches["uct_select"] == 0 and launches["hex_winner"] == 0,
+          f"{what}: the one-tile kernels launched: {launches}")
+    return launches
+
+
+def sharded_equal(torch, f_off, s_off, f_on, s_on, n: int, E: int,
+                  what: str) -> None:
+    """A sharded run equals the one-device run in every forest field and
+    in the stats that do not describe sharding, and its sharding stats
+    describe its mesh."""
+    from repro_torch.core.tree import Tree
+    bad = [name for name, a, b in zip(Tree._fields, f_off, f_on)
+           if not torch.equal(a, b)]
+    check(not bad, f"{what}: forest fields differ from one device: {bad}")
+    for k in ("best_move_sum", "best_move_vote", "member_best_moves",
+              "tree_nodes", "playouts", "n_syncs"):
+        check(s_on[k] == s_off[k], f"{what}: {k} {s_on[k]} != {s_off[k]}")
+    check(s_on["sharded"] is True and s_on["n_devices"] == n
+          and s_on["mesh_shape"] == {"ens": n}
+          and s_on["padded_members"] == -E % n,
+          f"{what}: sharding stats {s_on['sharded']}, {s_on['n_devices']}, "
+          f"{s_on['mesh_shape']}, {s_on['padded_members']} do not describe "
+          f"a mesh of {n}")
+
+
+def phase_hex_forest_sharded(torch):
+    """The root-parallel forest sharded over an ensemble mesh, at the forest
+    path's full width (8 trees of 32 lanes on 11x11, cap 2^18): on one
+    device, then on 2 and 3 virtual shards of the card and on every card
+    when there are several, each sharded run equal to the one-device run
+    field by field and launching each Hex kernel once a shard a sync
+    iteration; a warm move on 2 shards; the rates in turns, then metrics on
+    at their budget on 2 shards; a forest tenant served over 2 shards equal
+    to the batch search."""
+    import numpy as np
+    from repro_torch import rng
+    from repro_torch.core.gscpm import GSCPMConfig
+    from repro_torch.core.root_parallel import (check_forest_invariants,
+                                                gscpm_search_batch,
+                                                merged_root_stats)
+    from repro_torch.core.tree import reroot_forest
+    from repro_torch.serve.games import GameRequest, TPFIFOGameEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    E = FOREST_TREES
+    cfg = GSCPMConfig(**FOREST, n_playouts=SHARDED_PLAYOUTS)
+    game = cfg.game_obj
+    board = game.init_board("cuda")
+    key = rng.key(5, "cuda")
+    iters = sync_iterations(cfg)
+    counters = search_counters()
+    meshes = [["cuda"] * n for n in SHARDED_VIRTUAL]
+    if torch.cuda.device_count() > 1:
+        meshes.append(None)           # "cuda" alone: every visible card
+
+    def search(c, device, shard, root=board, to_move=1, forest=None):
+        """One forest search, the search counters zeroed just before."""
+        for ctr in counters.values():
+            ctr.launches = 0
+        return gscpm_search_batch(root, to_move, c, key, n_trees=E,
+                                  merge_every=SHARDED_MERGE_EVERY,
+                                  forest=forest, shard=shard, device=device)
+
+    # warm the allocator and the split and gather on a short search
+    gscpm_search_batch(board, 1, GSCPMConfig(**{**FOREST, "tree_cap": 1 << 12},
+                                             n_playouts=1024), key, n_trees=E,
+                       device=["cuda"] * 2, merge_every=SHARDED_MERGE_EVERY)
+
+    f_off, s_off = search(cfg, "cuda", "off")
+    runs, path = {"one_device": {"seconds": s_off["time_s"],
+                                 "playouts_per_s": s_off["playouts_per_s"],
+                                 "n_syncs": s_off["n_syncs"]}}, {}
+    for device in meshes:
+        f_on, s_on = search(cfg, device, "require")
+        n = s_on["n_devices"]
+        what = (f"sharded forest, every card ({n})" if device is None
+                else f"sharded forest, {n} virtual shards")
+        launches = sharded_launches_checked(counters, n, iters, what)
+        sharded_equal(torch, f_off, s_off, f_on, s_on, n, E, what)
+        for name, v in launches.items():
+            path[name] = path.get(name, 0) + v
+        runs["all_cards" if device is None else f"virtual_{n}"] = {
+            "n_devices": n, "padded_members": s_on["padded_members"],
+            "seconds": s_on["time_s"], "playouts_per_s": s_on["playouts_per_s"],
+            "launches": launches,
+            "launches_per_iteration_per_shard": {
+                k: launches[k] / (iters * n)
+                for k in ("select_descent", "hex_playout")}}
+        if device != ["cuda", "cuda"]:
+            del f_on
+            continue
+        f_two = f_on
+    check_forest_invariants(f_two)
+    check(torch.equal(f_two.visits[:, 0],
+                      torch.full((E,), float(s_off["playouts"]),
+                                 device="cuda")),
+          "sharded forest: after the last sync a member's root does not "
+          "carry the ensemble's playouts")
+
+    # a warm move on 2 shards after reroot_forest, against one device (the
+    # one-device search writes the re-rooted forest in place: it goes last)
+    mv = s_off["best_move_sum"]
+    carry = reroot_forest(f_two, mv)
+    del f_off, f_two
+    wcfg = GSCPMConfig(**FOREST, n_playouts=SHARDED_WARM_PLAYOUTS)
+    wboard = game.place(board, torch.tensor(mv, device="cuda"), 1)
+    f_w2, s_w2 = search(wcfg, ["cuda"] * 2, "require", wboard, 2, carry)
+    launches = sharded_launches_checked(counters, 2, sync_iterations(wcfg),
+                                        "sharded warm move")
+    for name, v in launches.items():
+        path[name] += v
+    f_w1, s_w1 = search(wcfg, "cuda", "off", wboard, 2, carry)
+    sharded_equal(torch, f_w1, s_w1, f_w2, s_w2, 2, E, "sharded warm move")
+    check(s_w2.get("reused_nodes", 0) == s_w1.get("reused_nodes", 0) > 0,
+          "sharded warm move: no retained nodes, or not as on one device")
+    warm = {"move": mv, "reused_nodes": s_w2["reused_nodes"],
+            "playouts_per_s": s_w2["playouts_per_s"],
+            "one_device_playouts_per_s": s_w1["playouts_per_s"]}
+    del carry, f_w1, f_w2
+
+    # the rates in turns: one device, 2 shards, 3 shards, then back
+    tcfg = GSCPMConfig(**FOREST, n_playouts=SHARDED_TURN_PLAYOUTS)
+    order = [("one_device", "cuda", "off")] + [
+        (f"virtual_{n}", ["cuda"] * n, "require") for n in SHARDED_VIRTUAL]
+    turns = {name: [] for name, _, _ in order}
+    for name, device, shard in order + order[::-1]:
+        f_t, st = search(tcfg, device, shard)
+        turns[name].append(st["playouts_per_s"])
+        if name == "one_device":
+            f_small, s_small = f_t, st
+    for name in turns:
+        turns[name].sort()
+
+    # metrics on, on 2 shards at the turns' budget: the one-device forest
+    # of the same search, the counters conserved
+    mcfg = GSCPMConfig(**FOREST, n_playouts=SHARDED_TURN_PLAYOUTS,
+                       metrics=True)
+    f_m, s_m = search(mcfg, ["cuda"] * 2, "require")
+    m_iters = sync_iterations(mcfg)
+    launches = sharded_launches_checked(counters, 2, m_iters,
+                                        "sharded forest with metrics")
+    for name, v in launches.items():
+        path[name] += v
+    sharded_equal(torch, f_small, s_small, f_m, s_m, 2, E,
+                  "sharded forest with metrics")
+    met = s_m["metrics"]
+    check(met["lane_playouts"] == s_m["playouts"]
+          and met["sync_iterations"] == E * m_iters
+          and met["expansions"] == sum(s_m["tree_nodes"]) - E,
+          f"sharded forest: metrics not conserved: {met}")
+    del f_m, f_t, f_small
+
+    # a forest tenant served over 2 virtual shards == the batch search
+    n_po, n_sh = SHARDED_SERVE["n_playouts"], SHARDED_SERVE["shards"]
+    for ctr in counters.values():
+        ctr.launches = 0
+    eng = TPFIFOGameEngine(**SERVE_ENGINE, device=["cuda"] * n_sh)
+    req = GameRequest(rid=0, game="hex", board_size=11, n_playouts=n_po,
+                      n_tasks=n_po // SERVE_GRAIN, seed=SERVE_REQUESTS + 1,
+                      n_trees=SHARDED_SERVE["n_trees"])
+    check(eng.submit(req), "sharded serve: request not queued")
+    eng.run()
+    rcfg = eng.request_cfg(req)
+    launches = sharded_launches_checked(counters, n_sh, sync_iterations(rcfg),
+                                        "served sharded forest tenant")
+    for name, v in launches.items():
+        path[name] += v
+    fst, bst = gscpm_search_batch(board, 1, rcfg, rng.key(req.seed, "cuda"),
+                                  n_trees=req.n_trees, shard="off",
+                                  device="cuda")
+    mvs, mws = merged_root_stats(fst, game.n_actions)
+    res = req.result
+    check(res["status"] == "answered"
+          and np.array_equal(res["root_visits"], mvs.cpu().numpy())
+          and np.array_equal(res["root_wins"], mws.cpu().numpy())
+          and res["best_move"] == bst["best_move_sum"]
+          and res["best_move_vote"] == bst["best_move_vote"]
+          and res["member_best_moves"] == bst["member_best_moves"]
+          and res["tree_nodes"] == sum(bst["tree_nodes"]),
+          "sharded serve: the forest tenant over 2 shards differs from "
+          "gscpm_search_batch on one device")
+    del fst
+
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    emit("hex_forest_sharded",
+         config={**FOREST, "n_trees": E, "playouts_per_member":
+                 SHARDED_PLAYOUTS, "merge_every": SHARDED_MERGE_EVERY,
+                 "sync_iterations": iters, "cards": torch.cuda.device_count()},
+         runs=runs, launches=path, metrics_on_equal=True, warm_move=warm,
+         playouts_per_s_in_turns={
+             **turns, "config": {"playouts_per_member":
+                                 SHARDED_TURN_PLAYOUTS,
+                                 "order": [n for n, _, _ in order + order[::-1]]}},
+         served_tenant={"n_trees": req.n_trees, "playouts": res["playouts"],
+                        "shards": n_sh, "equal": True},
+         peak_memory_mb=peak_mb, seconds=time.perf_counter() - t_phase)
+    return path
 
 
 # ---------------------------------------------------------------- gomoku ----
@@ -4975,6 +5209,7 @@ def main(argv=None) -> int:
     phase_search_metrics(torch)
     phase_trace_fit(torch)
     forest_launches, forest_rate = phase_hex_forest(torch)
+    sharded_launches = phase_hex_forest_sharded(torch)
     gomoku_launches, gomoku_rate = phase_gomoku(torch)
     serve_launches, serve_rate = phase_serve_games(torch)
     model = lm_model(torch)
@@ -4993,7 +5228,8 @@ def main(argv=None) -> int:
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
         # zeroed just before it ran: select_descent and hex_playout on the
-        # Hex search, the paper's sweep, the Hex forest and game serving;
+        # Hex search, the paper's sweep, the Hex forest (one device, then
+        # sharded: once a shard a sync iteration) and game serving;
         # select_descent on Gomoku (its playout has no kernel); uct_select
         # (the LM descent's tile), flash_attention and rmsnorm on the LM
         # search, the batched search, the LM engines, the families, the
@@ -5003,6 +5239,7 @@ def main(argv=None) -> int:
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
                    "hex_forest": forest_launches.get(r["name"], 0),
+                   "hex_forest_sharded": sharded_launches.get(r["name"], 0),
                    "gomoku": gomoku_launches.get(r["name"], 0),
                    "serve_games": serve_launches.get(r["name"], 0),
                    "lm_search": lm_launches.get(r["name"], 0),

@@ -26,7 +26,7 @@ leaf's dtype.
 
 The flatten helpers are shared with the serving snapshots
 (``repro_torch.serve.resilience``). One card only: ``restore`` with
-``shardings`` refuses, naming the multi-card row of ROADMAP.md.
+``shardings`` refuses, naming the multi-card row of ROADMAP.md (A14c).
 """
 
 from __future__ import annotations
@@ -188,12 +188,12 @@ def restore(base: str, step: int, template: Any, shardings: Any = None,
     array is cast to its template leaf's dtype and put on ``device``, or,
     when ``device`` is None, on the template leaf's device (a ``meta``
     template: CUDA). ``shardings`` (the reference's elastic reshard) is the
-    multi-card row of ROADMAP.md and refuses."""
+    multi-card row of ROADMAP.md (A14c) and refuses."""
     if shardings is not None:
         raise NotImplementedError(
             "restore(shardings=...): resharding across cards is the "
-            "multi-card row of ROADMAP.md; this port restores onto one "
-            "device")
+            "multi-card row of ROADMAP.md (A14c); this port restores onto "
+            "one device")
     d = step_dir(base, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)

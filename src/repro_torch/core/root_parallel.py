@@ -30,13 +30,23 @@ keys ``fold_in(member_key, task_id)``, so member e of a forest with
 ``merge_every = 0`` is exactly ``gscpm_search(board, to_move, cfg,
 fold_in(key, e))``.
 
-On one card the ensemble axis is not sharded: ``shard="auto"`` and
-``"off"`` take the one-device arm and ``"require"`` raises, as the JAX
-package does when it sees one device. The multi-card arm
-(``ensemble_mesh``, ``ensemble_spec``, ``ensemble_sharding``,
-``_sharded_chunk``, ``_sharded_chunk_metrics``) is not ported yet
-(ROADMAP.md item A7, its multi-card row): on one device the helpers answer
-as the JAX package's do, anything that would shard raises.
+**Sharding over cards.** With an ensemble mesh (``launch.mesh``: an
+ordered list of devices on the axis ``"ens"``) the E members — padded to a
+multiple of the mesh size with bitwise-inert members — split into
+contiguous blocks, one block a shard, each on its own device with its own
+storage (``core.tree.split_members``). One process drives every shard (a
+single controller, as the JAX package's ``shard_map`` program is): each
+schedule round runs ``run_chunk`` once a shard, so ``select_descent`` and
+``hex_playout`` each launch once a shard a sync iteration, and
+``sync_root_stats`` is the only cross-shard exchange. ``device=`` takes a
+list of devices; ``device=None`` (or ``"cuda"``) on a host with several
+cards shards over all of them, as the reference shards over its visible
+devices. A device may repeat: two entries of one device are two virtual
+shards, which is how the CPU tests and ``chip_smoke.py`` on one card
+rehearse the multi-card path. The sharded search is bit-identical to the
+one-device search. One thread dispatches every shard, so a round costs n
+times the launches of one shard: sharding buys memory and correctness on
+many cards, not speed, until queue B's host work lands.
 """
 
 from __future__ import annotations
@@ -61,21 +71,23 @@ from repro_torch.core.tree import (
     _root_children,
     best_child,
     check_invariants,
+    concat_members,
     forest_member,
     forest_size,
     init_forest,
     root_move_stats,
     root_value,
+    split_members,
 )
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import (make_ensemble_mesh, mesh_dims,
+                                     resolve_device, visible_devices)
 from repro_torch.obsv.search_metrics import (
     init_search_metrics_forest,
     summarize_metrics,
 )
-
-_MULTI_CARD = ("the multi-card ensemble arm (an 'ens' mesh, the forest "
-               "sharded over it) is not ported yet (ROADMAP.md item A7, its "
-               "multi-card row)")
+from repro_torch.sharding.rules import (DEFAULT_RULES, NamedSharding,
+                                        logical_to_spec)
 
 
 # ----------------------------------------------------------- forest chunk ----
@@ -96,36 +108,124 @@ def _forest_chunk(forest: Tree, boards: torch.Tensor, cfg: GSCPMConfig,
 run_chunk_forest = _forest_chunk
 
 
+def _on(device: torch.device):
+    """Make ``device`` the current CUDA device while a shard runs (the
+    kernels launch on the current device); nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def synchronize(devices) -> None:
+    """Wait for the queued work of every CUDA device in ``devices``:
+    ``torch.cuda.synchronize()`` alone waits on the current device only."""
+    seen = set()
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d not in seen:
+            seen.add(d)
+            torch.cuda.synchronize(d)
+
+
 def ensemble_mesh(devices=None):
-    """The 1-D ensemble mesh over the visible devices: None on one device,
-    as in the JAX package; more than one raises (not ported yet)."""
-    if devices is None:
-        devices = list(range(torch.cuda.device_count()))
+    """The 1-D ``"ens"`` mesh over ``devices`` (default: every visible CUDA
+    device); None with fewer than two entries, as in the JAX package.
+    Built through ``launch.mesh.make_ensemble_mesh``, whose axis the
+    ``sharding/rules.py`` "ensemble" rule maps onto. A CUDA entry the host
+    lacks raises."""
+    devices = visible_devices() if devices is None else list(devices)
     if len(devices) <= 1:
         return None
-    raise NotImplementedError(f"ensemble_mesh: {_MULTI_CARD}")
+    return make_ensemble_mesh(devices)
+
+
+def ensemble_devices(device=None, shard: str = "auto"):
+    """(home device, ensemble mesh or None) for a forest asked to run on
+    ``device``: a list or tuple of devices is the mesh's entries (repeats
+    are virtual shards); None or ``"cuda"`` means every visible card when
+    there are several, else the current card; any other device is one
+    device. ``shard="off"`` keeps the first entry alone. The home device —
+    the first entry — holds the gathered forest."""
+    if isinstance(device, (list, tuple)):
+        devs = [resolve_device(d) for d in device]
+        if not devs:
+            raise ValueError("device=[]: an ensemble needs a device")
+    else:
+        d = torch.device("cuda") if device is None else torch.device(device)
+        many = (d.type == "cuda" and d.index is None
+                and torch.cuda.device_count() > 1)
+        devs = visible_devices() if many else [d]
+    mesh = ensemble_mesh(devs) if shard != "off" else None
+    return devs[0], mesh
 
 
 def ensemble_spec(mesh):
-    """The member axis' placement on an ensemble mesh (not ported yet)."""
-    raise NotImplementedError(f"ensemble_spec: {_MULTI_CARD}")
+    """``P("ens")`` for the forest's leading member axis, derived through
+    the logical-axis rules rather than spelled by hand."""
+    return logical_to_spec(("ensemble",), DEFAULT_RULES, mesh)
 
 
 def ensemble_sharding(n_trees: int, mesh=None):
-    """(sharding over the ensemble axis, padded member count): ``(None,
-    n_trees)`` with fewer than two devices, as in the JAX package."""
+    """(NamedSharding over the ensemble axis, padded member count).
+
+    Returns ``(None, n_trees)`` with fewer than two mesh entries. A member
+    count that does not divide the mesh is PADDED up to the next multiple:
+    pad members only ever run under all-False ``active`` masks, which
+    leaves their trees bit-identical to init and their contribution to
+    every merge exactly zero, so real members match the unpadded,
+    unsharded run bit for bit.
+    """
     mesh = ensemble_mesh() if mesh is None else mesh
     if mesh is None:
         return None, n_trees
-    raise NotImplementedError(f"ensemble_sharding: {_MULTI_CARD}")
+    n_dev = mesh.size
+    padded = ((n_trees + n_dev - 1) // n_dev) * n_dev
+    return NamedSharding(mesh, ensemble_spec(mesh)), padded
 
 
-def _sharded_chunk(*args, **kwargs):
-    raise NotImplementedError(f"_sharded_chunk: {_MULTI_CARD}")
+def _shard_devices(mesh, shards) -> list[torch.device]:
+    devs = mesh.device_list()
+    if len(shards) != len(devs):
+        raise ValueError(f"{len(shards)} shards for a mesh of {len(devs)}")
+    for s, (f, d) in enumerate(zip(shards, devs)):
+        if f.device != d:
+            raise ValueError(f"shard {s} lies on {f.device}, its mesh entry "
+                             f"is {d}")
+    return devs
 
 
-def _sharded_chunk_metrics(*args, **kwargs):
-    raise NotImplementedError(f"_sharded_chunk_metrics: {_MULTI_CARD}")
+def _sharded_chunk(forest, boards, task_keys, active, m, cp, *, cfg, mesh):
+    """The forest chunk over an ensemble mesh: ``forest``, ``boards``,
+    ``task_keys`` and ``active`` are lists, one entry a shard on its mesh
+    device, and each shard runs ``_forest_chunk`` (unchanged) on its own
+    members with its device current — ZERO cross-shard exchange here;
+    ``sync_root_stats`` stays the only one. Per-shard RNG is free:
+    ``task_keys`` are folded from member keys that were folded over the
+    GLOBAL member ids before the split, so a member's stream is identical
+    no matter which shard hosts it. Returns the list of shard forests."""
+    devs = _shard_devices(mesh, forest)
+    out = []
+    for s, dev in enumerate(devs):
+        with _on(dev):
+            out.append(_forest_chunk(forest[s], boards[s], cfg, task_keys[s],
+                                     active[s], m, cp))
+    return out
+
+
+def _sharded_chunk_metrics(forest, boards, task_keys, active, m, cp, metrics,
+                           *, cfg, mesh):
+    """``_sharded_chunk`` with the (E,)-field ``SearchMetrics`` accumulator
+    split the same way (a list, one a shard; pad members see only
+    masked-out work). Returns (shard forests, shard accumulators)."""
+    devs = _shard_devices(mesh, forest)
+    trees, accs = [], []
+    for s, dev in enumerate(devs):
+        with _on(dev):
+            f, mm = _forest_chunk(forest[s], boards[s], cfg, task_keys[s],
+                                  active[s], m, cp, metrics[s])
+        trees.append(f)
+        accs.append(mm)
+    return trees, accs
 
 
 def pad_forest_members(forest: Tree, boards: torch.Tensor, n_padded: int,
@@ -153,6 +253,22 @@ def fold_member_task_keys(member_keys: torch.Tensor,
     return rng.fold_in(member_keys[:, None, :], task_ids[None, :])
 
 
+def _round_inputs(member_keys: torch.Tensor, rnd: sched.Round,
+                  n_real: int | None, first: int):
+    """(task keys (Es, W, 2), active (Es, W)) of one Round for the members
+    ``first .. first + Es`` of the ensemble, on their keys' device; members
+    at or past ``n_real`` (pads) run with all-False ``active``."""
+    dev = member_keys.device
+    Es = member_keys.shape[0]
+    task_keys = fold_member_task_keys(
+        member_keys, torch.as_tensor(rnd.task_ids, dtype=torch.int32,
+                                     device=dev))
+    act = np.tile(np.asarray(rnd.active)[None, :], (Es, 1))
+    if n_real is not None and n_real < first + Es:
+        act[max(0, n_real - first):] = False
+    return task_keys, torch.as_tensor(act, device=dev)
+
+
 def run_schedule_round_forest(forest: Tree, boards: torch.Tensor,
                               cfg: GSCPMConfig, member_keys: torch.Tensor,
                               rnd: sched.Round, cp, metrics=None, *,
@@ -160,29 +276,32 @@ def run_schedule_round_forest(forest: Tree, boards: torch.Tensor,
     """Forest twin of ``gscpm.run_schedule_round``: one schedule ``Round``
     for all E members — the quantum unit shared by the batch driver
     (``gscpm_search_batch``) and a serving engine. Round RNG depends only
-    on (member key, task id, iteration), never on padding or wall-clock
-    interleaving.
+    on (member key, task id, iteration), never on sharding, padding or
+    wall-clock interleaving.
 
-    ``n_real`` masks pad members (rows ``>= n_real`` run with all-False
-    ``active`` — bitwise inert). ``mesh`` (the multi-card arm) is not
-    ported yet. The forest is updated in place and returned; with
-    ``cfg.metrics`` the accumulator rides along and the round returns
-    ``(forest, metrics)``.
+    ``n_real`` masks pad members (rows ``>= n_real`` of the whole ensemble
+    run with all-False ``active`` — bitwise inert). With ``mesh``,
+    ``forest``, ``boards``, ``member_keys`` and ``metrics`` are lists with
+    one entry a mesh device (``core.tree.split_members``) and the round
+    runs ``_sharded_chunk`` (``_sharded_chunk_metrics``).
+    The forest is updated in place and returned; with ``cfg.metrics`` the
+    accumulator rides along and the round returns ``(forest, metrics)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"run_schedule_round_forest(mesh=): "
-                                  f"{_MULTI_CARD}")
-    Ep = forest_size(forest)
-    dev = boards.device
-    task_keys = fold_member_task_keys(
-        member_keys, torch.as_tensor(rnd.task_ids, dtype=torch.int32,
-                                     device=dev))
-    act = np.tile(np.asarray(rnd.active)[None, :], (Ep, 1))
-    if n_real is not None and n_real < Ep:
-        act[n_real:] = False
-    active = torch.as_tensor(act, device=dev)
-    return run_chunk_forest(forest, boards, cfg, task_keys, active,
-                            int(rnd.m), cp, metrics)
+    m = int(rnd.m)
+    if mesh is None:
+        task_keys, active = _round_inputs(member_keys, rnd, n_real, 0)
+        return run_chunk_forest(forest, boards, cfg, task_keys, active, m,
+                                cp, metrics)
+    inputs, first = [], 0
+    for mk in member_keys:
+        inputs.append(_round_inputs(mk, rnd, n_real, first))
+        first += mk.shape[0]
+    task_keys, active = [i[0] for i in inputs], [i[1] for i in inputs]
+    if cfg.metrics:
+        return _sharded_chunk_metrics(forest, boards, task_keys, active, m,
+                                      cp, metrics, cfg=cfg, mesh=mesh)
+    return _sharded_chunk(forest, boards, task_keys, active, m, cp, cfg=cfg,
+                          mesh=mesh)
 
 
 # ----------------------------------------------------------------- merges ----
@@ -287,27 +406,26 @@ def init_sync_state(n_trees: int, n_moves: int, device=None) -> RootSyncState:
                          root_wins=z1.clone())
 
 
-def sync_root_stats(forest: Tree, state: RootSyncState, n_moves: int
-                    ) -> tuple[Tree, RootSyncState]:
-    """Refresh every member's root stats with the other members' own work.
-
-    After the call, member e's root child for move a holds
-    ``own_e(a) + Σ_{e'≠e} own_e'(a)`` — for the moves e has expanded; moves a
-    member has not discovered receive nothing (it cannot host a child row
-    for them), which is the standard root-parallel partial-merge semantics.
-    Every statistic is a sum of half-integers, so the float32 sums are
-    exact. Writes into the forest in place; returns it and the new state.
-    """
-    cap = forest.cap
+def _own_root_stats(forest: Tree, state: RootSyncState, n_moves: int):
+    """Each member's OWN root statistics (in-tree minus injected): (E, M)
+    per-move visits and wins, (E,) root visits and wins."""
     dense_v, dense_w = root_move_stats(forest, n_moves)
-    own_v = dense_v - state.visits            # (E, M) each member's own work
-    own_w = dense_w - state.wins
-    new_f_v = own_v.sum(dim=0)[None, :] - own_v   # Σ others' own
-    new_f_w = own_w.sum(dim=0)[None, :] - own_w
-    own_rv = forest.visits[:, 0] - state.root_visits
-    own_rw = forest.wins[:, 0] - state.root_wins
-    new_f_rv = own_rv.sum() - own_rv
-    new_f_rw = own_rw.sum() - own_rw
+    return (dense_v - state.visits, dense_w - state.wins,
+            forest.visits[:, 0] - state.root_visits,
+            forest.wins[:, 0] - state.root_wins)
+
+
+def _inject_root_stats(forest: Tree, state: RootSyncState, own, total,
+                       n_moves: int) -> tuple[Tree, RootSyncState]:
+    """Write into each member the ensemble ``total`` of own statistics less
+    its own (Σ others' own), replacing what was injected before."""
+    cap = forest.cap
+    own_v, own_w, own_rv, own_rw = own
+    tot_v, tot_w, tot_rv, tot_rw = total
+    new_f_v = tot_v[None, :] - own_v              # Σ others' own
+    new_f_w = tot_w[None, :] - own_w
+    new_f_rv = tot_rv - own_rv
+    new_f_rw = tot_rw - own_rw
 
     valid, safe = _root_children(forest)                          # (E, C)
     mv = torch.clamp(torch.where(valid, forest.move.gather(1, safe), 0),
@@ -330,6 +448,42 @@ def sync_root_stats(forest: Tree, state: RootSyncState, n_moves: int
         root_visits=new_f_rv, root_wins=new_f_rw)
 
 
+def sync_root_stats(forest, state, n_moves: int):
+    """Refresh every member's root stats with the other members' own work.
+
+    After the call, member e's root child for move a holds
+    ``own_e(a) + Σ_{e'≠e} own_e'(a)`` — for the moves e has expanded;
+    moves a member has not discovered receive nothing (it cannot host a
+    child row for them), which is the standard root-parallel partial-merge
+    semantics. Writes into the forest in place; returns it and the new
+    state.
+
+    On shards (``forest`` and ``state`` lists, one entry a mesh device):
+    each shard sums its members' own statistics on its own device, the
+    partial sums go to the first shard's device and are added there in
+    shard order, and the total goes back to every shard, which injects it
+    into its members — the only cross-shard exchange of a sharded search.
+    Every statistic is a sum of half-integers, so the float32 sums are
+    exact, and therefore independent of the order of the adds, only while
+    every summed count stays below 2^24; the sharded and the one-device
+    merges (and the JAX package's) rely on that alike.
+    """
+    if isinstance(forest, Tree):
+        own = _own_root_stats(forest, state, n_moves)
+        return _inject_root_stats(forest, state, own,
+                                  tuple(x.sum(dim=0) for x in own), n_moves)
+    owns = [_own_root_stats(f, st, n_moves) for f, st in zip(forest, state)]
+    home = forest[0].device
+    partial = [[x.sum(dim=0).to(home) for x in own] for own in owns]
+    total = partial[0]
+    for p in partial[1:]:
+        total = [t + q for t, q in zip(total, p)]
+    out = [_inject_root_stats(f, st, own, tuple(t.to(f.device)
+                                                for t in total), n_moves)
+           for f, st, own in zip(forest, state, owns)]
+    return [f for f, _ in out], [st for _, st in out]
+
+
 # ------------------------------------------------------------------ driver ----
 def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
                        key: torch.Tensor, *, n_trees: int | None = None,
@@ -346,19 +500,41 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
 
     ``forest`` warm-starts all E members from an existing forest — typically
     ``reroot_forest``'s output after a move. The member count must match the
-    boards batch; the schedule stays exactly ``cfg``'s, and the forest's
-    tensors are updated in place (when they already lie on ``device``).
+    boards batch; the schedule stays exactly ``cfg``'s. On one device the
+    forest's tensors are updated in place (when they already lie there);
+    a sharded search splits a copy and returns a new forest.
 
-    ``device=None`` means ``torch.device("cuda")``. ``shard``: ``"auto"``
-    and ``"off"`` run the one-device arm; ``"require"`` raises (the
-    multi-card arm is not ported yet). ``cfg.metrics`` adds a
-    whole-ensemble ``stats["metrics"]`` summary (members merged: counters
-    summed, gauges maxed); ``tracer`` records per-round ``gscpm_round``
-    spans, synchronising the device inside each (a profiling mode — see
-    ``gscpm.gscpm_search``). ``plain_kernels=True`` runs the whole search
-    with the kernels' plain versions even on the card (a comparison mode).
+    ``device``: None means ``torch.device("cuda")`` — every visible card
+    when the host has several —; a list of devices is an ensemble mesh
+    (repeat a device for virtual shards: ``["cpu"] * 4``). ``shard``:
+    ``"auto"`` shards the members over the mesh whenever it has two or
+    more entries (padding E up to a multiple of its size: pad members are
+    bitwise inert), ``"off"`` runs on the first device alone,
+    ``"require"`` raises ``RuntimeError`` unless a mesh of two or more
+    entries is there. The sharded search is bit-identical to the unsharded
+    one: member keys are folded over the global member ids before the
+    split, and the only exchange is ``sync_root_stats``' exact merge. Its
+    result is gathered onto the first device as one ``(E, cap + 1)``
+    forest, so ``forest_summary``, ``reroot_forest`` and a warm search
+    (which splits it again) work unchanged — which holds one whole forest
+    on the first card (1.07 GB at 8 x (2^18 + 1) rows).
+
+    ``cfg.metrics`` adds a whole-ensemble ``stats["metrics"]`` summary
+    (members merged: counters summed, gauges maxed); ``tracer`` records
+    per-round ``gscpm_round`` spans, synchronising every shard's device
+    inside each (a profiling mode — see ``gscpm.gscpm_search``).
+    ``plain_kernels=True`` runs the whole search with the kernels' plain
+    versions even on the card (a comparison mode).
     """
-    device = torch.device("cuda") if device is None else torch.device(device)
+    if shard not in ("auto", "off", "require"):
+        raise ValueError(f"shard must be 'auto'|'off'|'require', "
+                         f"got {shard!r}")
+    device, mesh = ensemble_devices(device, shard)
+    if shard == "require" and mesh is None:
+        raise RuntimeError(
+            "shard='require' but the ensemble mesh has fewer than two "
+            "entries — pass device=[...] with two or more (repeat a device "
+            "for virtual shards; README 'Scaling out')")
     boards = torch.as_tensor(boards).to(device=device, dtype=torch.int8)
     if boards.dim() == 1:
         if n_trees is None and forest is not None:
@@ -368,9 +544,6 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
     E = boards.shape[0]
     if n_trees is not None and n_trees != E:
         raise ValueError(f"n_trees={n_trees} != boards.shape[0]={E}")
-    if shard not in ("auto", "off", "require"):
-        raise ValueError(f"shard must be 'auto'|'off'|'require', "
-                         f"got {shard!r}")
     n_moves = cfg.game_obj.n_actions  # the Game seam's move-id space
     key = key.to(device)
 
@@ -386,26 +559,40 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
         tm = int(torch.as_tensor(to_move).reshape(-1)[0])
         warm_tree_check(forest, tm, cfg)
         reused_nodes = int(forest.n_nodes.sum()) - E
-    if shard == "require":
-        raise RuntimeError(
-            "shard='require' but the port runs the ensemble on one device: "
-            f"{_MULTI_CARD}")
+    padded_members = 0
+    Ep = E
+    if mesh is not None:
+        _, Ep = ensemble_sharding(E, mesh)
+        padded_members = Ep - E
+        forest, boards = pad_forest_members(forest, boards, Ep, cfg, to_move)
+    # folded over the GLOBAL member ids before any split: a member's stream
+    # never depends on the shard that hosts it
     member_keys = fold_task_keys(
-        key, torch.arange(E, dtype=torch.int32, device=device))
+        key, torch.arange(Ep, dtype=torch.int32, device=device))
     schedule = sched.make_schedule(
         cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler)
-    state = init_sync_state(E, n_moves, device) if merge_every > 0 else None
+    state = init_sync_state(Ep, n_moves, device) if merge_every > 0 else None
     metrics = None
     if cfg.metrics:
-        metrics = init_search_metrics_forest(E, device)
+        metrics = init_search_metrics_forest(Ep, device)
         if reused_nodes:
-            # per-member retention gauge (summed in the ensemble summary)
+            # per-member retention gauge (summed in the ensemble summary;
+            # pad members report 0 — their forests are fresh inits)
             metrics = metrics._replace(
                 tree_nodes_reused=(forest.n_nodes - 1).to(torch.int32))
+    devices = [device]
+    if mesh is not None:
+        devices = mesh.device_list()
+        forest = split_members(forest, devices)
+        boards = split_members(boards, devices)
+        member_keys = split_members(member_keys, devices)
+        if state is not None:
+            state = split_members(state, devices)
+        if metrics is not None:
+            metrics = split_members(metrics, devices)
 
     cp = float(cfg.cp)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    sync()
+    synchronize(devices)
     t0 = time.perf_counter()
     playouts_per_tree = 0
     n_syncs = 0
@@ -419,10 +606,10 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
                   else contextlib.nullcontext()):
                 out = run_schedule_round_forest(forest, boards, cfg,
                                                 member_keys, rnd, cp, metrics,
-                                                n_real=E)
+                                                n_real=E, mesh=mesh)
                 forest, metrics = out if cfg.metrics else (out, metrics)
                 if tracer:
-                    sync()
+                    synchronize(devices)
             if tracer:
                 tracer.poll_compiles()
             playouts_per_tree += int(rnd.active.sum()) * rnd.m
@@ -430,9 +617,17 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
                                     or r == len(schedule) - 1):
                 forest, state = sync_root_stats(forest, state, n_moves)
                 n_syncs += 1
-    sync()
+    synchronize(devices)
     dt = time.perf_counter() - t0
 
+    if mesh is not None:
+        forest = concat_members(forest, device)
+        if metrics is not None:
+            metrics = concat_members(metrics, device)
+    if padded_members:
+        forest = Tree(*(x[:E] for x in forest))
+        if metrics is not None:
+            metrics = type(metrics)(*(x[:E] for x in metrics))
     playouts = E * playouts_per_tree
     summary = forest_summary(forest, n_moves)
     stats = {
@@ -444,10 +639,10 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
         "rounds": len(schedule),
         "grain": cfg.grain,
         "n_syncs": n_syncs,
-        "sharded": False,
-        "n_devices": 1,
-        "mesh_shape": None,
-        "padded_members": 0,
+        "sharded": mesh is not None,
+        "n_devices": 1 if mesh is None else mesh.size,
+        "mesh_shape": None if mesh is None else mesh_dims(mesh),
+        "padded_members": padded_members,
         "tree_nodes": forest.n_nodes.cpu().tolist(),
         "member_best_moves": summary["member_best_moves"].cpu().tolist(),
         "member_root_values": summary["member_root_values"].cpu().tolist(),

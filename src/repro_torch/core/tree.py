@@ -119,6 +119,41 @@ def forest_member(forest: Tree, e: int) -> Tree:
     return Tree(*(x[e] for x in forest))
 
 
+def split_members(x, devices):
+    """Split a forest — or anything with a leading member axis: a tensor, or
+    a NamedTuple of them (``SearchMetrics``, ``RootSyncState``) — into
+    ``len(devices)`` contiguous member blocks, block s on ``devices[s]``.
+
+    Node ids are member-local, so a forest's block is a whole forest of its
+    own (``member_rows`` offsets by the shard-local member index). Every
+    block is a COPY with its own storage, even on the device the source
+    lies on: a virtual shard must never be a view into a buffer
+    another shard also writes, or a run on one device could pass where one
+    over several cards fails. The member count must divide (pad first:
+    ``root_parallel.pad_forest_members``)."""
+    n = len(devices)
+    if isinstance(x, torch.Tensor):
+        E = x.shape[0]
+        if E % n:
+            raise ValueError(f"{E} members do not split into {n} shards")
+        b = E // n
+        return [x[s * b:(s + 1) * b].to(d, copy=True)
+                for s, d in enumerate(devices)]
+    parts = [split_members(f, devices) for f in x]
+    return [type(x)(*fields) for fields in zip(*parts)]
+
+
+def concat_members(shards, device):
+    """The inverse of ``split_members``: the blocks concatenated in shard
+    order into one structure on ``device`` (shard forests into one
+    ``(E, cap + 1)`` forest)."""
+    first = shards[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([s.to(device) for s in shards])
+    return type(first)(*(concat_members(list(fs), device)
+                         for fs in zip(*shards)))
+
+
 def member_rows(tree: Tree, ids: torch.Tensor) -> torch.Tensor:
     """Member-local node ids -> rows of the flat ``E·(cap + 1)`` view.
 

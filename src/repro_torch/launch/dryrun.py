@@ -22,9 +22,9 @@ cell's keys (``fits_hbm`` in place of ``fits_16GiB``; the XLA-only figures
 ``None``).
 
 The mesh is ``"card"`` (one chip). ``--multi-pod`` and the ``multipod``
-mesh are the multi-card row of ROADMAP.md and refuse. A cell whose step the
-``meta`` run cannot count in reasonable time is an ``error`` cell with its
-reason: the sLSTM recurrence (``models/xlstm.py``) is a Python loop of one
+mesh are the multi-card row of ROADMAP.md (A14b) and refuse. A cell whose
+step the ``meta`` run cannot count in reasonable time is an ``error`` cell
+with its reason: the sLSTM recurrence (``models/xlstm.py``) is a Python loop of one
 step a token, so xlstm's train and prefill cells would run hundreds of
 thousands of steps (``TOKEN_LOOP_LIMIT``).
 
@@ -254,7 +254,8 @@ def main(argv=None):
     p.add_argument("--shape", default=None, choices=list(configs.SHAPES))
     p.add_argument("--all", action="store_true")
     p.add_argument("--multi-pod", action="store_true",
-                   help="the multi-pod mesh (the multi-card row: refused)")
+                   help="the multi-pod mesh (the multi-card row, A14b: "
+                        "refused)")
     p.add_argument("--out", default=OUT_DIR)
     p.add_argument("--skip-existing", action="store_true")
     args = p.parse_args(argv)

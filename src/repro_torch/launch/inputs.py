@@ -11,8 +11,8 @@ returns ``ShapeDtypeStruct``s:
 - decode cells:  (abstract params, tokens (B, 1), pos (B,), abstract cache)
 
 The sharding half — ``rules_for_shape``, ``shardings_for``,
-``batch_shardings_for`` — is the multi-card row of ROADMAP.md: those names
-exist and refuse, naming it.
+``batch_shardings_for`` — is the multi-card row of ROADMAP.md, item A14b
+(the sharded analysis): those names exist and refuse, naming it.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from repro_torch.models.common import ModelConfig, tree_map
 from repro_torch.train import step as train_step_mod
 
 ENCDEC_SRC_LEN = api.ENCDEC_SRC_LEN
-MULTI_CARD = train_step_mod.MULTI_CARD
+MULTI_CARD = "the multi-card row of ROADMAP.md (A14b, the sharded analysis)"
 
 
 def _meta(shape, dtype) -> torch.Tensor:

@@ -36,7 +36,7 @@ def main(argv=None):
                    help="use the full published config (default: reduced twin)")
     p.add_argument("--mesh", action="store_true",
                    help="train under a mesh over the visible local devices "
-                        "(the multi-card row: refused)")
+                        "(the multi-card row, A14c: refused)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (the card, default) or cpu (plain versions)")
@@ -45,7 +45,7 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             "--mesh: training under a device mesh is the multi-card row of "
-            "ROADMAP.md; this port trains on one card")
+            "ROADMAP.md (A14c); this port trains on one card")
     cfg = (configs.get_config(args.arch) if args.full_config
            else configs.reduced_config(args.arch))
     out = train(

@@ -47,9 +47,13 @@ Where the port differs in idiom from the JAX package:
   not on the stream, which by then also holds this tick's quanta. On the
   CPU the summary is a plain copy.
 - ``device=None`` means ``torch.device("cuda")``; tests pass ``"cpu"``.
-  Forest tenants run on one device: ``ensemble_mesh()`` is None there and
-  raises on more than one (ROADMAP.md A7's multi-card row), as in the JAX
-  package's one-device arm.
+  As in ``root_parallel.gscpm_search_batch``, ``device`` may be a list of
+  devices, and None on a host with several cards means all of them: forest
+  tenants then shard their members over that ensemble mesh (one block a
+  shard, each on its device; repeats are virtual shards), and everything
+  else runs on the first device. A sharded tenant's retirement summary is
+  read from its forest gathered onto the first device, and its pipelined
+  retirement waits on an event of every shard's device.
 """
 
 from __future__ import annotations
@@ -68,14 +72,17 @@ from repro_torch.core import game as game_mod
 from repro_torch.core import scheduler as sched
 from repro_torch.core.gscpm import (GSCPMConfig, fold_task_keys,
                                     run_schedule_round, warm_tree_check)
-from repro_torch.core.root_parallel import (ensemble_mesh, ensemble_sharding,
+from repro_torch.core.root_parallel import (ensemble_devices,
+                                            ensemble_sharding,
                                             forest_retire_summary,
                                             materialize_forest_summary,
                                             pad_forest_members,
-                                            run_schedule_round_forest)
-from repro_torch.core.tree import (Tree, init_forest, init_tree,
-                                   materialize_root_summary, reroot_tree,
-                                   root_summary_device)
+                                            run_schedule_round_forest,
+                                            synchronize)
+from repro_torch.core.tree import (Tree, concat_members, init_forest,
+                                   init_tree, materialize_root_summary,
+                                   reroot_tree, root_summary_device,
+                                   split_members)
 from repro_torch.obsv.search_metrics import (init_search_metrics,
                                              init_search_metrics_forest,
                                              summarize_metrics)
@@ -110,8 +117,8 @@ class GameRequest:
     board: Any = None
     # root-parallel ensemble width: E > 1 serves the request as a FOREST
     # tenant — E independent trees on the request's position, advanced by
-    # one dispatch per round (on one device: the port's multi-card arm is
-    # ROADMAP.md A7's) and retired with merged root stats
+    # one pass per round (sharded over the engine's ensemble mesh when it
+    # has one) and retired with merged root stats
     # (``root_parallel.forest_root_summary``). ``n_playouts`` is the
     # PER-MEMBER budget; ``result["playouts"]`` reports the ensemble
     # total. Forest requests are stateless (no ``session``).
@@ -155,7 +162,8 @@ class _SearchState:
     # to ``n_padded`` rows when an ensemble mesh does not divide E — never
     # on one device), ``board`` is the (n_padded, n_cells) tiled position,
     # and rounds dispatch ``run_schedule_round_forest`` with these member
-    # streams
+    # streams. With a mesh, ``tree``, ``board``, ``member_keys`` and
+    # ``metrics`` are lists, one entry a shard on its mesh device.
     n_trees: int = 1
     n_padded: int = 1
     member_keys: Any = None         # (n_padded, 2) member key streams
@@ -193,7 +201,9 @@ class TPFIFOGameEngine(TPFIFODriver):
     (``n_workers``, ``tree_cap``, ``vl_rounds``, ``select_noise``) are
     fixed per engine; everything per-request (budget, grain, Cp, deadline,
     position, seed) is host-side and opens no new pool. ``device`` is where
-    every tree lives (None: ``torch.device("cuda")``).
+    every tree lives (None: ``torch.device("cuda")``); a list of devices
+    (or None on a host with several cards) is the ensemble mesh that
+    forest tenants shard over, the first entry everything else's device.
 
     ``metrics=True`` turns on the device-plane ``SearchMetrics`` plane for
     every served search (DESIGN.md §15): each request's accumulator rides
@@ -231,8 +241,11 @@ class TPFIFOGameEngine(TPFIFODriver):
         self.guard = guard
         self._snapshots = (injector is not None) if snapshots is None \
             else bool(snapshots)
-        self.device = (torch.device("cuda") if device is None
-                       else torch.device(device))
+        # the home device, and the ensemble mesh forest tenants shard over
+        # (None on one device)
+        self.device, self.mesh = ensemble_devices(device)
+        self.devices = ([self.device] if self.mesh is None
+                        else self.mesh.device_list())
         # async round pipelining (DESIGN.md §18): a finished search frees
         # its slot immediately and its retirement readback is deferred one
         # tick, so the host materializes it WHILE the device runs the next
@@ -481,18 +494,17 @@ class TPFIFOGameEngine(TPFIFODriver):
 
     def _make_forest_state(self, cfg: GSCPMConfig, t: Ticket,
                            board: torch.Tensor) -> _SearchState:
-        """State for a forest tenant: E member trees on one position. The
-        ensemble axis would be sharded over a device mesh, padded with
-        bitwise-inert members; on one device ``ensemble_sharding`` gives
-        no sharding and no pad (more devices raise: ROADMAP.md A7's
-        multi-card row). Per-member RNG streams are the
-        ``gscpm_search_batch`` folding of the request seed, so a
-        quantum-served forest is bit-identical to the uninterrupted batch
-        search."""
+        """State for a forest tenant: E member trees on one position. With
+        an ensemble mesh the ensemble axis is sharded over it, padded with
+        bitwise-inert members (``ensemble_sharding``) and split into one
+        block a shard; on one device nothing is padded or split.
+        Per-member RNG streams are the ``gscpm_search_batch`` folding of
+        the request seed over the global member ids, so a quantum-served
+        forest is bit-identical to the uninterrupted batch search."""
         req = t.req
         E = cfg.n_trees
-        mesh = ensemble_mesh()
-        _, Ep = ensemble_sharding(E, mesh)
+        mesh = self.mesh
+        Ep = E if mesh is None else ensemble_sharding(E, mesh)[1]
         forest = init_forest(E, cfg.tree_cap, cfg.game_obj.n_actions,
                              req.to_move, device=self.device)
         boards = board[None, :].expand(E, -1).contiguous()
@@ -504,6 +516,13 @@ class TPFIFOGameEngine(TPFIFODriver):
         metrics = None
         if cfg.metrics:
             metrics = init_search_metrics_forest(Ep, self.device)
+        if mesh is not None:
+            devs = self.devices
+            forest = split_members(forest, devs)
+            boards = split_members(boards, devs)
+            member_keys = split_members(member_keys, devs)
+            if metrics is not None:
+                metrics = split_members(metrics, devs)
         return _SearchState(
             cfg=cfg, board=boards, key=key,
             cp=float(cfg.cp),
@@ -559,8 +578,8 @@ class TPFIFOGameEngine(TPFIFODriver):
             self._sync_active()
         for ck, s, t, st, dev, copied in ready:
             with self._device_wait("retire_summary", rid=t.req.rid):
-                if copied is not None:
-                    copied.synchronize()
+                for event in copied or ():
+                    event.synchronize()
                 self._materialize_retirement(ck, s, t, st, dev)
         return len(live)
 
@@ -582,28 +601,34 @@ class TPFIFOGameEngine(TPFIFODriver):
         return list(self.pools).index(ck) * self.slots_per_class + s
 
     def _sync(self) -> None:
-        """Wait for the device's queued work (the tracer's honest spans)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every device's queued work (the tracer's honest
+        spans)."""
+        synchronize(self.devices)
 
-    def _stage_summary(self, dev: dict):
-        """Pipelined retirement: (host summary, event or None).
+    def _stage_summary(self, dev: dict, devices=None):
+        """Pipelined retirement: (host summary, events to wait on or None).
 
         On the card each summary tensor is copied into a fresh pinned host
         tensor with ``non_blocking=True`` and an event is recorded behind
-        the copies: waiting on that event later waits for this summary
-        only, not for the quanta queued after it (a ``.cpu()`` a tick later
-        would wait for the whole stream). On the CPU it is a plain copy
-        (``tree_nodes`` is the tree's own counter, updated in place).
+        the copies on the current stream of each of ``devices`` (the
+        search's: the home device, or every shard's for a sharded forest):
+        waiting on those events later waits for this summary and the work
+        it was read from, not for the quanta queued after it (a ``.cpu()``
+        a tick later would wait for the whole stream). On the CPU it is a
+        plain copy (``tree_nodes`` is the tree's own counter, updated in
+        place).
         """
         if self.device.type != "cuda":
             return {k: v.clone() for k, v in dev.items()}, None
         host = {k: torch.empty(v.shape, dtype=v.dtype,
                                pin_memory=True).copy_(v, non_blocking=True)
                 for k, v in dev.items()}
-        copied = torch.cuda.Event()
-        copied.record()
-        return host, copied
+        events = []
+        for d in dict.fromkeys(devices or [self.device]):
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(d))
+            events.append(event)
+        return host, events
 
     def _run_slot(self, t: Ticket, m: int,
                   slot_key: tuple[GSCPMConfig, int] | None = None) -> None:
@@ -715,6 +740,10 @@ class TPFIFOGameEngine(TPFIFODriver):
                     self._sync()
         if st.n_trees > 1:
             forest = st.tree
+            if st.mesh is not None:
+                # the retirement summary reads the forest gathered onto
+                # the home device
+                forest = concat_members(forest, self.device)
             if st.n_padded > st.n_trees:
                 # sharding pads never ran a playout; slice them off so the
                 # merge, vote, and node count see only real members
@@ -725,8 +754,8 @@ class TPFIFOGameEngine(TPFIFODriver):
         if self.pipeline:
             self._states.pop(t.req.rid)
             self.pools[ck][s] = None
-            self._pending_retire.append((ck, s, t, st,
-                                         *self._stage_summary(dev)))
+            self._pending_retire.append((ck, s, t, st, *self._stage_summary(
+                dev, None if st.mesh is None else self.devices)))
             return
         with self._device_wait("retire_summary", rid=t.req.rid):
             self._materialize_retirement(ck, s, t, st, dev)
@@ -782,6 +811,8 @@ class TPFIFOGameEngine(TPFIFODriver):
             res["reused_nodes"] = st.reused_nodes
         if st.cfg.metrics:
             mm = st.metrics
+            if st.mesh is not None:
+                mm = concat_members(mm, self.device)
             if st.n_padded > st.n_trees:
                 mm = type(mm)(*(x[:st.n_trees] for x in mm))
             res["metrics"] = summarize_metrics(mm)

@@ -162,7 +162,16 @@ def poison_root_stats(tree):
     visit count on the child. Written IN PLACE (the port's trees are
     updated in place; the last committed snapshot is a host copy, so a
     rollback still restores the clean state) and returned. On a forest the
-    index is the member axis, as the JAX package's ``.at[0]`` is."""
+    index is the member axis, as the JAX package's ``.at[0]`` is; on a
+    sharded forest (a list of shard forests) the same members 0 and 1 are
+    found in their shards."""
+    if isinstance(tree, list):
+        rows = [(f, i) for f in tree for i in range(f.parent.shape[0])]
+        (f0, i0), (f1, i1) = rows[0], rows[1]
+        f0.wins[i0] = float("nan")
+        f1.wins[i1] = float("nan")
+        f1.visits[i1] = -1.0
+        return tree
     tree.wins[0] = float("nan")
     tree.wins[1] = float("nan")
     tree.visits[1] = -1.0

@@ -17,7 +17,7 @@ skip-on-spike, watchdog (port of ``repro.train.loop``).
 Each step ends in a host read of its metrics, which waits for the card: a
 step's wall time is its device time plus whatever the host adds. The
 history and the return dict have the reference's fields. ``mesh=`` is the
-multi-card row of ROADMAP.md and refuses.
+multi-card row of ROADMAP.md (A14c) and refuses.
 """
 
 from __future__ import annotations

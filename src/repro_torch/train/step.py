@@ -14,7 +14,8 @@ keys (``checkpoint.store``). The step updates it in place and returns it.
 
 The multi-card half — ``make_train_step_compressed`` (int8 gradients across
 pods), ``state_shardings``, ``batch_shardings``, ``jit_train_step`` — is the
-multi-card row of ROADMAP.md: those names exist and refuse, naming it.
+multi-card row of ROADMAP.md, item A14c: those names exist and refuse,
+naming it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from repro_torch.models.transformer import TransformerLM, as_tree
 from repro_torch.optim import adamw
 
 BATCH_KEYS = ("tokens", "labels", "mask", "patches", "frames")
-MULTI_CARD = "the multi-card row of ROADMAP.md"
+MULTI_CARD = "the multi-card row of ROADMAP.md (A14c, multi-card training)"
 
 
 def _device(device) -> torch.device:

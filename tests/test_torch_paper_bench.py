@@ -152,7 +152,11 @@ def test_table2_fig9_and_root_parallel_run_on_the_cpu():
     rp = root_parallel.run(n_playouts=16, n_tasks=4, ensemble_sweep=(1, 2),
                            repeats=1, device="cpu")
     assert rp["device"] == "cpu" and set(rp["ensemble"]) == {"1", "2"}
-    assert "multi-card" in rp["sharded_forest"]["skipped"]
+    sf = rp["sharded_forest"]
+    assert sf["sharded"]["sharded"] is True
+    assert sf["single_device"]["sharded"] is False
+    assert sf["sharded"]["best_move_sum"] == sf["single_device"][
+        "best_move_sum"]
 
 
 @pytest.mark.parametrize("job,item", [("render_experiments",

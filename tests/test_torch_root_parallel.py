@@ -227,10 +227,18 @@ def test_one_device_shard_rules_and_argument_checks():
     if torch.cuda.device_count() <= 1:
         assert trp.ensemble_mesh() is None
         assert trp.ensemble_sharding(3) == (None, 3)
-    with pytest.raises(NotImplementedError, match="A7"):
-        trp.ensemble_spec(None)
-    with pytest.raises(NotImplementedError, match="A7"):
-        trp._sharded_chunk()
+    # the multi-card arm runs: the spec comes from the rules, and the
+    # sharded chunk advances each shard's members on its own
+    mesh = trp.ensemble_mesh(["cpu", "cpu"])
+    assert tuple(trp.ensemble_spec(mesh)) == ("ens",)
+    assert trp.ensemble_sharding(3, mesh)[1] == 4
+    keys = rng.split(key, 2 * cfg.n_workers).view(2, cfg.n_workers, 2)
+    parts = trp._sharded_chunk(
+        tt.split_members(tt.init_forest(2, 64, 25, 1, "cpu"), ["cpu"] * 2),
+        [board[None, :], board[None, :]], [keys[:1], keys[1:]],
+        [torch.ones((1, cfg.n_workers), dtype=torch.bool)] * 2, 1, 1.0,
+        cfg=cfg, mesh=mesh)
+    assert [float(p.visits[0, 0]) for p in parts] == [cfg.n_workers] * 2
 
 
 def test_init_forest_and_members_match_reference():
