@@ -3,8 +3,9 @@ of ``benchmarks/roofline_table.py``).
 
 Reads ``artifacts/dryrun_torch/*.json`` (written by
 ``python -m repro_torch.launch.dryrun``) and emits the per-(arch x shape)
-markdown table: the three terms with the H100's constants, the dominant
-bottleneck, MODEL_FLOPS over counted FLOPs, peak GB. The counts come from
+markdown table of each mesh (one card, the single-pod and the multi-pod
+mesh): the three terms with the H100's constants, the dominant
+bottleneck, MODEL_FLOPS over counted FLOPs, peak GB a chip. The counts come from
 ``meta`` runs on the host: every term is a prediction from the data
 sheet's peaks, not a measurement. Cells the dry-run could not count are
 listed under the table with their reason.
@@ -67,10 +68,13 @@ def run(dryrun_dir: str = DRYRUN_DIR) -> dict:
         "n_cells": len(cells),
         "n_ok": len(ok),
         "table_card": render(cells, "card"),
+        "table_single": render(cells, "single"),
+        "table_multipod": render(cells, "multipod"),
     }
 
 
 if __name__ == "__main__":
     r = run()
     print(f"{r['n_ok']}/{r['n_cells']} cells\n")
-    print(r["table_card"])
+    for mesh in ("card", "single", "multipod"):
+        print(f"{mesh}:\n{r['table_' + mesh]}\n")

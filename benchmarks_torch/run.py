@@ -28,8 +28,9 @@ kernel against its plain version at the JAX twin's shapes and times it.
 (``artifacts/dryrun_torch/``, written by ``python -m
 repro_torch.launch.dryrun --all``); with ``--quick`` it first dry-runs one
 reduced cell into ``dryrun_quick/`` beside the job's JSON and renders that.
-``render_experiments`` is the multi-card row of ROADMAP.md (A14b): asking
-for it by name raises.
+``render_experiments`` renders the sharded dry-run's summary, its
+single-pod table and their reading from the same artifacts (the reference
+fills them into its write-up; here they are the job's JSON).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import traceback
 
 from repro_torch.configs.hex_paper import PAPER, TASK_SWEEP
 
-NOT_PORTED = {"render_experiments": "the multi-card row (ROADMAP.md A14b)"}
+NOT_PORTED: dict[str, str] = {}
 
 # the card's configuration: the paper's 11x11 Hex at 256 lanes (the width
 # of every Hex phase of chip_smoke.py), Cp = 1
@@ -72,9 +73,9 @@ def roofline_job(quick: bool) -> dict:
 
 def jobs_for(quick: bool, device) -> dict:
     from benchmarks_torch import (ablate_vloss, fig5_cilkview, fig7_speedup,
-                                  kernels_micro, root_parallel, selfplay,
-                                  serve_chaos, serve_games,
-                                  table2_sequential, tpfifo)
+                                  kernels_micro, render_experiments,
+                                  root_parallel, selfplay, serve_chaos,
+                                  serve_games, table2_sequential, tpfifo)
 
     dev = dict(device=device)
     if quick:
@@ -107,6 +108,7 @@ def jobs_for(quick: bool, device) -> dict:
                 hex_shapes=((5, 8),), gomoku_shapes=((5, 4),),
                 rmsnorm_shapes=((16, 64),), iters=2, **dev),
             "roofline_table": lambda: roofline_job(quick=True),
+            "render_experiments": lambda: render_experiments.run(),
         }
     hex_kw = dict(**HEX, n_playouts=SWEEP_PLAYOUTS, repeats=3,
                   seq_playouts=SEQ_PLAYOUTS)
@@ -141,6 +143,7 @@ def jobs_for(quick: bool, device) -> dict:
         "selfplay": lambda: selfplay.run(**selfplay.CARD, **dev),
         "kernels_micro": lambda: kernels_micro.run(**dev),
         "roofline_table": lambda: roofline_job(quick=False),
+        "render_experiments": lambda: render_experiments.run(),
     }
 
 
@@ -403,7 +406,7 @@ def _summ(name: str, res: dict) -> dict:
     if name == "kernels_micro":
         return {k: list(v) for k, v in res.items()
                 if isinstance(v, dict) and k != "device"}
-    if name == "roofline_table":
+    if name in ("roofline_table", "render_experiments"):
         return {"n_ok": res["n_ok"], "n_cells": res["n_cells"]}
     return {}
 

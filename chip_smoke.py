@@ -31,8 +31,8 @@ the port's paths:
   cost, no kernel build inside a span);
 - the root-parallel forest (``repro_torch.core.root_parallel.
   gscpm_search_batch``): 8 trees of 32 lanes on 11x11 Hex, three self-play
-  moves (65,536 playouts a member, then ``reroot_forest`` at the visit-sum
-  move and two warm moves of 16,384), checking that each sync iteration
+  moves (32,768 playouts a member, then ``reroot_forest`` at the visit-sum
+  move and two warm moves of 8,192), checking that each sync iteration
   launches ``select_descent`` once per selection round and ``hex_playout``
   once for all members, the re-root retention contract on every member
   after every move, and at 8,192 playouts a member that each member equals
@@ -64,7 +64,7 @@ the port's paths:
   ones; one engine tick profiled (CUDA activity);
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
   weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 2
-  tokens after a 128-token prompt, 512 playouts a token on 64 lanes, run twice
+  tokens after a 128-token prompt, 256 playouts a token on 64 lanes, run twice
   with bit-identical tokens and trees, then once more, and one
   search stepped side by side, with the kernels' plain versions;
 - LM serving on the same model: B = 4 token trees searched as one forest
@@ -86,7 +86,7 @@ the port's paths:
   tokens), its logits held against the plain versions in float32 and
   bf16 (the MoE runs on one routing, every parting of the plain run's own
   a near-tie), and xlstm-1.3b one search-guided token (``MCTSSlotEngine``,
-  64 lanes, 256 playouts), with rmsnorm at the families' widths and flash
+  64 lanes, 128 playouts), with rmsnorm at the families' widths and flash
   at qwen3-moe's and zamba2's head dims held and timed;
 - the vlm and encoder-decoder families at their published widths
   (``lm_vlm_encdec``, bf16, random weights, one model at a time):
@@ -119,7 +119,19 @@ the port's paths:
   timed on the card; no step may beat its compute term or the time to
   move its arguments and outputs once, the dry-run's peak must lie within
   0.5-2x of the card's, and each kernel must launch as often as the
-  dry-run called it.
+  dry-run called it;
+- one rank's share of two full-width decode cells on the single-pod
+  (16, 16) mesh (``lm_sharded``, bf16, every layer, flash off): this
+  process is rank 0 of a ``"fake"`` process group of 256 ranks, whose
+  collectives move nothing; llama3-8b and qwen3-moe-235b-a22b (all 94
+  layers, ~470 GB whole) x decode_32k are counted per rank by the sharded
+  dry-run on ``meta``, rank 0's shards are made directly on the card
+  (~1.8 GB of the MoE's weights, ~3.2 GB of its cache) and 1 warm and 3
+  timed decode steps run under DTensor; rmsnorm must launch as often as
+  the count calls it, no step may beat the rank's compute term or one pass
+  over its arguments and outputs, and the count's peak must lie within
+  0.5-2x of the card's. Values are not checked: a fake collective's output
+  is uninitialized memory.
 
 ``lm_kernels`` also holds and times flash attention, rmsnorm and the
 one-tile ``uct_select`` at LM serving's shapes (``new_shapes``), the
@@ -189,14 +201,15 @@ METRICS_CHECK_PLAYOUTS = 8192
 
 # the root-parallel forest path: 8 trees of 32 lanes (256 lanes a launch,
 # the single tree's width), 128 tasks a member (grain 512 on the first
-# move), 65,536 playouts a member (half the paper's budget over the
-# ensemble, to keep the script inside its time limit); then the visit-sum
-# move is played, the forest re-rooted, and two warm moves searched at
-# 16,384 playouts a member
+# move), 32,768 playouts a member (a quarter of the paper's budget over
+# the ensemble, to keep the script inside its time limit: 65,536 until the
+# lm_sharded phase needed the time); then the visit-sum move is played,
+# the forest re-rooted, and two warm moves searched at 8,192 playouts a
+# member (16,384 until then)
 FOREST = dict(board_size=11, n_workers=32, n_tasks=128, tree_cap=1 << 18,
               scheduler="fifo", cp=1.0, vl_rounds=1)
 FOREST_TREES = 8
-FOREST_PLAYOUTS = (65_536, 16_384, 16_384)
+FOREST_PLAYOUTS = (32_768, 8_192, 8_192)
 # the forest's checks: 4 members at 8,192 playouts each
 FOREST_CHECK = dict(n_trees=4, n_playouts=8192)
 # the forest sharded over an ensemble mesh (hex_forest_sharded): the same
@@ -251,11 +264,12 @@ TICK_PLAYOUTS = 16_384
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
 # 2 generated tokens (the second search starts from the committed first),
-# each from a GSCPM search of 512 playouts on 64 lanes (1,024 until the
-# training phase needed the time: PERF.md §4)
+# each from a GSCPM search of 256 playouts on 64 lanes (1,024 until the
+# training phase needed the time, 512 until the lm_sharded phase did:
+# PERF.md §4)
 LM_PROMPT_LEN = 128
 LM_TOKENS = 2
-LM_PLAYOUTS = 512
+LM_PLAYOUTS = 256
 LM_SEARCH = dict(n_workers=64, n_tasks=64, branch=8, max_depth=6,
                  rollout_len=8, tree_cap=4096)
 LM_PREFILL_SHAPE = (64, 9, 3, LM_PROMPT_LEN, 64)   # B, H, Hkv, S, d
@@ -271,10 +285,11 @@ LM_BATCH_TOKENS = 2
 LM_BATCH_PLAYOUTS = 128
 LM_BATCH_MASK = (True, True, False, True)
 # - lm_serve: a Poisson trace (benchmarks_torch.tpfifo.make_trace) of 16
-#   requests, prompts of 16-48 tokens and every third 96-160, 32 new tokens
-#   each, no eos; TPFIFOEngine(8 slots, max_len 256, grain 8, fifo), then
-#   the same trace through SlotEngine(8 slots, max_len 256);
-LM_SERVE_TRACE = dict(n_requests=16, rate_rps=4.0, max_new=32,
+#   requests, prompts of 16-48 tokens and every third 96-160, 16 new tokens
+#   each (32 until the lm_sharded phase needed the time), no eos;
+#   TPFIFOEngine(8 slots, max_len 256, grain 8, fifo), then the same trace
+#   through SlotEngine(8 slots, max_len 256);
+LM_SERVE_TRACE = dict(n_requests=16, rate_rps=4.0, max_new=16,
                       short_lens=(16, 48), long_lens=(96, 160), seed=0)
 LM_SERVE_ENGINE = dict(n_slots=8, max_len=256)
 LM_SERVE_GRAIN = 8
@@ -293,22 +308,23 @@ LM_MCTS_SLOTS = 4
 #   widths, bf16, random weights from seed 0, one at a time; the two 235B
 #   MoE models cut to their first 2 layers (deepseek-v2: the dense MLA
 #   layer and one MoE layer) to fit one card, zamba2-7b and xlstm-1.3b
-#   whole. Each serves 4 requests of 32-128-token prompts, 16 greedy new
-#   tokens, through SlotEngine and TPFIFOEngine (4 slots, max_len 160,
+#   whole. Each serves 4 requests of 32-128-token prompts, 8 greedy new
+#   tokens (16 until the lm_sharded phase needed the time), through
+#   SlotEngine and TPFIFOEngine (4 slots, max_len 160,
 #   grain 8); xlstm-1.3b also one search-guided token (MCTSSlotEngine, the
-#   LM_SEARCH width, 256 playouts). The logits check prefills 64 tokens
+#   LM_SEARCH width, 128 playouts). The logits check prefills 64 tokens
 #   of 4 rows and decodes 2 steps.
 LM_FAMILIES = {"qwen3-moe-235b-a22b": dict(n_layers=2, use_flash=True),
                "deepseek-v2-236b": dict(n_layers=2, use_flash=False),
                "zamba2-7b": dict(use_flash=True),
                "xlstm-1.3b": dict(use_flash=False)}
 LM_FAMILY_LENS = (32, 64, 96, 128)
-LM_FAMILY_MAX_NEW = 16
+LM_FAMILY_MAX_NEW = 8
 LM_FAMILY_MAX_LEN = 160
 LM_FAMILY_GRAIN = 8
 LM_FAMILY_CHECK_LEN = 64
 LM_FAMILY_MCTS_ARCH = "xlstm-1.3b"
-LM_FAMILY_MCTS_PLAYOUTS = 256
+LM_FAMILY_MCTS_PLAYOUTS = 128
 # the families' logits, kernels vs plain versions: in float32 to 1e-3 of
 # the largest logit (observed 6e-5-1.2e-4 on zamba2-7b and xlstm-1.3b:
 # float32 sums in another order through 81 / 48 layers); in bf16 the
@@ -436,6 +452,14 @@ ROOFLINE_FLASH_PLAIN_HEADS = 1
 # 61 norms and 30 attentions, where a one-ulp difference (2**-8 relative)
 # can flip; allowed: 5 % of the largest logit
 LOGITS_TOL = 0.05
+
+# lm_sharded: one rank's share of two full-width decode cells (bf16, every
+# layer, use_flash off as in the sharded dry-run) on the single-pod mesh,
+# this process rank 0 of a fake process group of 256 ranks on the card
+LM_SHARDED_CELLS = ("llama3-8b", "qwen3-moe-235b-a22b")
+LM_SHARDED_SHAPE = "decode_32k"
+LM_SHARDED_STEPS = 3
+LM_SHARDED_PEAK_RATIO = (0.5, 2.0)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1534,8 +1558,8 @@ def paired_iteration_ms(torch, forest, boards, fcfg, tree, board, tcfg,
 
 def phase_hex_forest(torch):
     """The root-parallel forest path at full width: 8 trees of 32 lanes,
-    three self-play moves (65,536 playouts a member, then the visit-sum
-    move played, the forest re-rooted and two warm moves of 16,384), each
+    three self-play moves (32,768 playouts a member, then the visit-sum
+    move played, the forest re-rooted and two warm moves of 8,192), each
     sync iteration one pass for all members."""
     from repro_torch import parity, rng
     from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
@@ -5172,6 +5196,171 @@ def phase_lm_roofline(torch):
     return total, bodies
 
 
+def sharded_inputs(torch, spec, mesh):
+    """The cell's arguments as rank 0's shards on the card, each block made
+    directly (the whole tensor never exists): seed-0 weights (a generator a
+    leaf, drawn in float32 at 0.02 and cast), a zeroed cache, seeded tokens,
+    and one (B,) position tensor a step near the cache's end. The position
+    and token shards are the inputs' own, never a collective's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import inputs as inp
+    from repro_torch.sharding import rules as shr
+
+    cfg, shape, rules = spec["cfg"], spec["shape"], spec["rules"]
+    B, S = shape.global_batch, shape.seq_len
+    seed = iter(range(1 << 20))
+
+    def weight(local_shape, dtype):
+        g = torch.Generator(device="cuda").manual_seed(next(seed))
+        return (0.02 * torch.randn(local_shape, generator=g, device="cuda")
+                ).to(dtype)
+
+    def zeros(local_shape, dtype):
+        return torch.zeros(local_shape, dtype=dtype, device="cuda")
+
+    params = inp.place_tree(mesh, spec["params"], spec["param_axes"], rules,
+                            init=weight)
+    cache = inp.place_tree(mesh, spec["cache"], spec["cache_axes"], rules,
+                           init=zeros)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    steps = []
+    for i in range(1 + LM_SHARDED_STEPS):
+        tok = shr.distribute_to(mesh, spec["tokens"], ("batch", None), rules,
+                                init=lambda sh, dt: torch.randint(
+                                    0, cfg.vocab, sh, generator=g,
+                                    device="cuda", dtype=dt))
+        pos = shr.distribute_to(mesh, spec["pos"], ("batch",), rules,
+                                init=lambda sh, dt, i=i: torch.full(
+                                    sh, S - 1 - LM_SHARDED_STEPS + i,
+                                    dtype=dt, device="cuda"))
+        steps.append((tok, pos))
+    check(all(isinstance(t, DTensor) and t.to_local().is_cuda
+              for t in (params["final_norm"], tok, pos)),
+          "lm_sharded: the inputs are not shards on the card")
+    return params, cache, steps
+
+
+def phase_lm_sharded(torch):
+    """One rank's share of two full-width decode cells on the single-pod
+    (16, 16) mesh (LM_SHARDED_CELLS x decode_32k, bf16, every layer:
+    qwen3-moe-235b-a22b's 94 are ~470 GB, which no card holds whole). This
+    process is rank 0 of a ``"fake"`` process group of 256 ranks: its
+    collectives return at once and write nothing, so what runs is rank 0's
+    own work, its shards and the collectives' buffers. Each cell is counted
+    by the sharded dry-run on ``meta`` (``launch.dryrun.analyze_cell``,
+    mesh ``single``: per-rank FLOPs, bytes, wire bytes, collectives, peak,
+    kernel calls), then rank 0's shards are made directly on the card
+    (``sharded_inputs``) and 1 warm and LM_SHARDED_STEPS timed decode steps
+    run under DTensor, and one more under the profiler (its idle share).
+    Checks: rmsnorm launched as often as the count's calls, every step; no
+    step shorter than the rank's compute term or than moving its arguments
+    and outputs once; the count's peak within LM_SHARDED_PEAK_RATIO of the
+    card's. Values are not checked: a fake collective's output is
+    uninitialized memory."""
+    import statistics
+
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import inputs as inp
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import api
+    from repro_torch.sharding import rules as shr
+    t_phase = time.perf_counter()
+    cells, total = [], {}
+    with lmesh.fake_process_group(256):
+        count_mesh = lmesh.make_production_mesh()
+        mesh = lmesh.make_production_mesh(device_type="cuda")
+        for arch in LM_SHARDED_CELLS:
+            t0 = time.perf_counter()
+            res = dryrun.analyze_cell(arch, LM_SHARDED_SHAPE, "single",
+                                      mesh=count_mesh)
+            count_s = time.perf_counter() - t0
+            spec = inp.input_specs(arch, LM_SHARDED_SHAPE,
+                                   {"use_flash": False})
+            cfg = spec["cfg"]
+            r, mem = res["roofline"], res["memory"]
+            calls = res["kernels"]["calls"]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params, cache, steps = sharded_inputs(torch, spec, mesh)
+            counters, plain = lm_train_counters()
+            times = []
+            with shr.use_rules(spec["rules"], mesh), implicit_replication(), \
+                    plain, torch.no_grad():
+                for tok, pos in steps:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = api.decode(params, cfg, tok, pos, cache)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    del out
+                peak = torch.cuda.max_memory_allocated() - base
+                counts = read_train_counters(counters, plain)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    api.decode(params, cfg, *steps[-1], cache)
+                    torch.cuda.synchronize()
+                    wall_ms = 1e3 * (time.perf_counter() - t0)
+            kernels, device_ms = cuda_activity(prof)
+            del params, cache, steps
+            torch.cuda.empty_cache()
+            n = 1 + LM_SHARDED_STEPS
+            launches = {k: counts[k]["launches"] for k in calls}
+            check(calls["rmsnorm"] > 0
+                  and launches == {k: n * c for k, c in calls.items()}
+                  and all(counts[k]["plain_forwards"] == 0 for k in calls),
+                  f"lm_sharded {arch}: launches {counts} over {n} steps, the "
+                  f"count's calls {calls} a step")
+            measured = statistics.median(times[1:])
+            io_s = (mem["argument_bytes"] + mem["output_bytes"]) \
+                / HBM_BYTES_PER_S
+            check(min(times[1:]) >= max(r["compute_s"], io_s),
+                  f"lm_sharded {arch}: a step of {min(times[1:])} s under "
+                  f"the rank's compute term {r['compute_s']} s or its "
+                  f"argument and output bytes' {io_s} s")
+            est = mem["peak_bytes_per_chip"]
+            lo, hi = LM_SHARDED_PEAK_RATIO
+            check(lo <= est / peak <= hi,
+                  f"lm_sharded {arch}: the count's peak {est} B against the "
+                  f"card's {peak} B")
+            total = add_counts(total, launches)
+            coll = res["collectives"]
+            cells.append({
+                "arch": arch, "shape": LM_SHARDED_SHAPE,
+                "mesh": res["mesh_dims"], "rank": 0,
+                "n_params": res["n_params"], "n_layers": cfg.n_layers,
+                "global_batch": spec["shape"].global_batch,
+                "seq_len": spec["shape"].seq_len,
+                "flops_per_rank": r["flops_per_chip"],
+                "matmul_flops_per_rank": res["cost"]["matmul_flops"],
+                "bytes_per_rank": r["hbm_bytes_per_chip"],
+                "wire_bytes_per_rank": r["wire_bytes_per_chip"],
+                "collectives": {op: c for op, (c, _) in
+                                coll["by_op"].items()},
+                "collective_count": coll["count"],
+                "compute_ms": 1e3 * r["compute_s"],
+                "memory_ms": 1e3 * r["memory_s"],
+                "collective_ms": 1e3 * r["collective_s"],
+                "io_ms": 1e3 * io_s,
+                "measured_ms": 1e3 * measured,
+                "steps_ms": [1e3 * t for t in times],
+                "profiled_step": {"cuda_kernels": kernels,
+                                  "device_ms": device_ms, "wall_ms": wall_ms,
+                                  "device_idle_share": None if device_ms is
+                                  None else 1 - device_ms / wall_ms},
+                "peak_count_mb": est / 2**20, "peak_measured_mb": peak / 2**20,
+                "peak_ratio": est / peak,
+                "argument_mb": mem["argument_bytes"] / 2**20,
+                "launches": launches, "launches_a_step": calls,
+                "count_s": count_s})
+    emit("lm_sharded", cells=cells, phase_seconds=time.perf_counter() - t_phase)
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
@@ -5222,6 +5411,7 @@ def main(argv=None) -> int:
     ve_launches, ve_bodies = phase_lm_vlm_encdec(torch)
     train_launches, train_bodies = phase_lm_train(torch)
     roofline_launches, roofline_bodies = phase_lm_roofline(torch)
+    sharded_lm_launches = phase_lm_sharded(torch)
     flash_by_body = add_counts(flash_by_body, batch_bodies, serve_bodies,
                                mcts_bodies, families_bodies, ve_bodies,
                                train_bodies, roofline_bodies)
@@ -5234,7 +5424,8 @@ def main(argv=None) -> int:
         # (the LM descent's tile), flash_attention and rmsnorm on the LM
         # search, the batched search, the LM engines, the families, the
         # vlm and encdec models, training and the roofline cells (flash and
-        # rmsnorm: the forward's launches); hex_winner judges filled
+        # rmsnorm: the forward's launches), rmsnorm on one rank's share of
+        # the sharded decode cells; hex_winner judges filled
         # boards, which no path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
@@ -5249,7 +5440,8 @@ def main(argv=None) -> int:
                    "lm_families": families_launches.get(r["name"], 0),
                    "lm_vlm_encdec": ve_launches.get(r["name"], 0),
                    "lm_train": train_launches.get(r["name"], 0),
-                   "lm_roofline": roofline_launches.get(r["name"], 0)}
+                   "lm_roofline": roofline_launches.get(r["name"], 0),
+                   "lm_sharded": sharded_lm_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():

@@ -18,7 +18,9 @@ only.
 
 While a roofline count runs (``roofline.op_costs``, a step on ``meta``
 tensors), ``rmsnorm`` and ``flash_attention`` calls off the card go to the
-count, which charges each as its kernel (``_costs``).
+count, which charges each as its kernel (``_costs``), and so does
+``token_loop``, a model's token recurrence, which the count charges as one
+step times its trips.
 
 Training differentiates through ``rmsnorm`` and ``flash_attention`` on
 both paths: on the card the forward is still the kernel and the backward
@@ -29,6 +31,9 @@ runs through the plain version itself.
 from __future__ import annotations
 
 import contextlib
+
+import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hex_playout as _hp
@@ -151,6 +156,11 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
             f"flash_attention: v head dim {v.shape[-1]} differs from the q/k "
             f"head dim {q.shape[-1]}; the kernel takes one head dim (MLA "
             "runs with use_flash=False)")
+    if isinstance(q, DTensor):
+        raise ValueError(
+            "flash_attention inside an LM mesh: the sharded analysis runs "
+            "with use_flash off, as the reference's dry-run never runs its "
+            "flash kernel sharded")
     if q.is_cuda and not _force_plain:
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                    layout=layout)
@@ -163,11 +173,55 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
     return out.transpose(1, 2) if bshd else out
 
 
+def token_loop(step, trips: int, state: tuple, inputs=()):
+    """A token recurrence: ``y_t, state = step(t, state)`` for t in
+    range(``trips``) -> (the y_t stacked along dim 1, the final state), run
+    in full on every device. While a roofline count runs on ``meta``
+    tensors the loop goes to the count (``_costs``), which charges one
+    step for all of them, as ``hlo_costs`` scales a while body; ``inputs``
+    are the tensors from outside the step that it reads."""
+    if _costs is not None and trips > 1 and all(t.is_meta for t in state):
+        return _costs.token_loop(step, trips, state, inputs)
+    return full_loop(step, trips, state)
+
+
+def full_loop(step, trips: int, state: tuple):
+    """``token_loop`` run step by step."""
+    ys = []
+    for t in range(trips):
+        y, state = step(t, state)
+        ys.append(y)
+    return torch.stack(ys, dim=1), state
+
+
 def rmsnorm(x, w, eps: float = 1e-5, order: str = "kernel"):
     """RMSNorm over the last axis; ``order`` is ``"kernel"`` (the TPU
-    kernel's rounding) or ``"model"`` (the JAX models' ``layers.rmsnorm``)."""
+    kernel's rounding) or ``"model"`` (the JAX models' ``layers.rmsnorm``).
+    A DTensor ``x`` is normed shard by shard (``_rmsnorm_sharded``)."""
+    if isinstance(x, DTensor):
+        return _rmsnorm_sharded(x, w, eps, order)
     if x.is_cuda and not _force_plain:
         return _rn.rmsnorm(x, w, eps=eps, order=order)
     if _costs is not None:
         return _costs.rmsnorm(x, w, eps, order)
     return _ref.rmsnorm(x, w, eps=eps, order=order)
+
+
+def _rmsnorm_sharded(x, w, eps: float, order: str):
+    """``rmsnorm`` of a DTensor: the kernel (or, in a count, its charge)
+    on each rank's local rows (``sharding.rules.local_region``), the weight
+    replicated. The normed axis must be whole on every rank: a row split
+    over the mesh is refused, and a pending partial sum is reduced first."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding import rules as shr
+
+    last = x.dim() - 1
+    if any(isinstance(p, Shard) and p.dim in (-1, last) for p in x.placements):
+        raise ValueError(f"rmsnorm: the normed axis of a DTensor must be "
+                         f"whole, got placements {x.placements}")
+    pl = tuple(p if isinstance(p, Shard) else Replicate()
+               for p in x.placements)
+    return shr.local_region(lambda a, b: rmsnorm(a, b, eps=eps, order=order),
+                            [x, w], [pl, (Replicate(),) * len(pl)],
+                            (pl, tuple(x.shape)))

@@ -1,91 +1,102 @@
-"""One-card dry-run: count every (arch × shape) cell on ``meta`` tensors
-(port of ``repro.launch.dryrun``'s single-card half).
+"""Dry-run: count every (arch × shape × mesh) cell on ``meta`` tensors
+(port of ``repro.launch.dryrun``).
 
 The JAX package lowers and compiles each cell for 512 placeholder devices
-and parses the HLO. The port has one card and no compiler: each cell's step
-— ``train.step.make_train_step``, ``serve.engine.make_prefill_step`` or
+and parses the HLO. The port has no compiler: each cell's step —
+``train.step.make_train_step``, ``serve.engine.make_prefill_step`` or
 ``make_serve_step``, the functions the port trains and serves with — runs
 once on ``meta`` tensors (shapes and dtypes, no memory) under
 ``roofline.op_costs.OpCosts``, which charges every dispatched op and tracks
-the live storages. For each cell it records
+the live storages. Three meshes:
 
-- the peak of live storages — the counterpart of
+- ``card``: one H100, the whole step on plain ``meta`` tensors;
+- ``single`` and ``multipod``: the reference's production meshes, (16, 16)
+  over ("data", "model") and (2, 16, 16) over ("pod", "data", "model")
+  (``launch.mesh.make_production_mesh``). This process is rank 0 of a
+  ``"fake"`` process group of 512 ranks (``launch.mesh.
+  fake_process_group``; started here when none is initialized, and torn
+  down only if started here), and the step runs on ``meta`` DTensors
+  placed by the cell's rules (``launch.inputs.input_specs(mesh=)``): what
+  is counted is rank 0's share — its local ops, its live local shards,
+  and the collectives DTensor and the models' regions issue
+  (``roofline.collectives``). As in the reference's dry-run, ``use_flash``
+  is off on these meshes.
+
+For each cell it records
+
+- the peak of live storages per chip — the counterpart of
   ``compiled.memory_analysis()``; ``fits_hbm`` against the H100's 80 GB,
-- the step's FLOPs, transcendentals and bytes (``bytes_major``: each
-  hand-written kernel call at its own bytes; ``bytes``: the eager upper
-  bound), its matmul FLOPs, and the kernel calls it would launch,
-- the three roofline terms with the H100's constants (``roofline.terms``);
-  the collective term is 0 on one card,
+- the step's FLOPs, transcendentals and bytes per chip (``bytes_major``:
+  each hand-written kernel call at its own bytes; ``bytes``: the eager
+  upper bound), its matmul FLOPs, and the kernel calls it would launch,
+- the collectives per chip: count, operand and wire bytes (the reference's
+  ring model), by op,
+- the three roofline terms with the H100's constants (``roofline.terms``;
+  the collective term at NVLink's 450 GB/s, a lower bound: a 16-wide axis
+  spans two 8-GPU nodes, whose link is slower — ``COLLECTIVE_NOTE``),
 
-in ``artifacts/dryrun_torch/<arch>__<shape>__card.json``, with the JAX
+in ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``, with the JAX
 cell's keys (``fits_hbm`` in place of ``fits_16GiB``; the XLA-only figures
-``None``).
-
-The mesh is ``"card"`` (one chip). ``--multi-pod`` and the ``multipod``
-mesh are the multi-card row of ROADMAP.md (A14b) and refuse. A cell whose
-step the ``meta`` run cannot count in reasonable time is an ``error`` cell
-with its reason: the sLSTM recurrence (``models/xlstm.py``) is a Python loop of one
-step a token, so xlstm's train and prefill cells would run hundreds of
-thousands of steps (``TOKEN_LOOP_LIMIT``).
+``None``). The sLSTM recurrence (``models/xlstm.py``) is a loop of one
+step a token (``kernels.ops.token_loop``); on ``meta`` one step is run and
+charged as all of them (``OpCosts.token_loop``, ``while_trips``), as
+``hlo_costs`` scales a while body.
 
 Usage:
-    python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
-    python -m repro_torch.launch.dryrun --all [--skip-existing]
+    python -m repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k \\
+        [--multi-pod | --card]
+    python -m repro_torch.launch.dryrun --all [--single-pod-only |
+        --multi-pod-only | --card-only] [--skip-existing]
         [--out artifacts/dryrun_torch]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
 import traceback
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import configs
 from repro_torch.launch import inputs as inp
-from repro_torch.models import api
+from repro_torch.launch import mesh as lmesh
+from repro_torch.models import api, layers
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim import adamw
+from repro_torch.roofline import collectives as coll
 from repro_torch.roofline import hw
 from repro_torch.roofline import terms as rt
 from repro_torch.roofline.op_costs import OpCosts, storages
 from repro_torch.serve import engine as serve_engine
+from repro_torch.sharding import rules as shr
 from repro_torch.train import step as train_step_mod
 
 MESH = "card"
-CHIPS = 1
+MESHES = (MESH,) + tuple(lmesh.PRODUCTION_MESHES)
 OUT_DIR = "artifacts/dryrun_torch"
-# the most sLSTM token steps a count takes on (each ~35 dispatched ops);
-# xlstm-1.3b's train_4k needs 73,728 and its prefill_32k 196,608
-TOKEN_LOOP_LIMIT = 16_384
+COLLECTIVE_NOTE = (
+    "collective term at NVLink's 450 GB/s a link: a lower bound, since a "
+    "16-wide mesh axis spans two 8-GPU NVLink nodes and its ring crosses "
+    "the slower link between them")
 
 
-def _refuse_mesh(mesh_name: str) -> None:
-    if mesh_name != MESH:
-        raise NotImplementedError(
-            f"mesh {mesh_name!r}: multi-card meshes are {inp.MULTI_CARD}; "
-            f"the port's dry-run runs on one card (mesh {MESH!r})")
-
-
-def token_loop_steps(cfg, shape) -> int:
-    """Python steps of the sLSTM token loop in one step of the cell (the
-    train step runs the recurrence forward, again under remat, and
-    backward)."""
-    if cfg.family != "xlstm" or shape.kind == "decode":
-        return 0
-    n_slstm = cfg.n_layers // cfg.slstm_every
-    return shape.seq_len * n_slstm * (3 if shape.kind == "train" else 1)
+def _check_mesh(mesh_name: str) -> None:
+    if mesh_name not in MESHES:
+        raise ValueError(f"mesh {mesh_name!r}: one of {MESHES}")
 
 
 def build_cell(arch: str, shape_name: str,
                cfg_overrides: dict | None = None,
-               shape_overrides: dict | None = None):
+               shape_overrides: dict | None = None, mesh=None):
     """(step, args, spec): one cell's step function and its ``meta``
-    arguments (``inputs.input_specs``)."""
-    spec = inp.input_specs(arch, shape_name, cfg_overrides, shape_overrides)
+    arguments (``inputs.input_specs``; on ``mesh``, DTensors)."""
+    spec = inp.input_specs(arch, shape_name, cfg_overrides, shape_overrides,
+                           mesh=mesh)
     cfg, shape = spec["cfg"], spec["shape"]
     if shape.kind == "train":
         step = train_step_mod.make_train_step(
@@ -108,7 +119,11 @@ def count_step(step, args, train: bool):
     ``compiled.memory_analysis()``'s terms (arguments, outputs, the
     outputs that alias an argument — the state the step updates in place —
     and the temporaries: peak = arguments + outputs + temporaries -
-    aliased)."""
+    aliased). Every count is a process's first step, whatever the process
+    counted before: the constants made once a device and cached (the RoPE
+    frequencies, the learning-rate schedule's table) are made inside it."""
+    layers._rope_freqs.cache_clear()
+    adamw._decay_table_on.cache_clear()
     inputs = storages(*args)
     with OpCosts() as oc:
         oc.track(*args)
@@ -125,28 +140,51 @@ def count_step(step, args, train: bool):
                 "fits_hbm": bool(peak < hw.HBM_PER_CHIP)}
 
 
+@contextlib.contextmanager
+def _sharded(rules: dict, mesh):
+    """The sharded step's context: the cell's rules on ``mesh`` (the
+    models' ``shard`` annotations read them), and plain tensors made inside
+    the step (positions, masks: the same on every rank) taken as
+    replicated where they meet DTensors."""
+    with shr.use_rules(rules, mesh), implicit_replication():
+        yield
+
+
 def analyze_cell(arch: str, shape_name: str, mesh_name: str = MESH,
                  cfg_overrides: dict | None = None,
-                 shape_overrides: dict | None = None) -> dict:
+                 shape_overrides: dict | None = None, mesh=None) -> dict:
     """Count one cell on ``meta`` and extract every roofline input
-    (``shape_overrides``: the shape's cuts, recorded under
-    ``overrides``)."""
-    _refuse_mesh(mesh_name)
+    (``shape_overrides``: the shape's cuts, recorded under ``overrides``).
+    ``mesh_name`` ``"single"`` or ``"multipod"`` counts rank 0's share on
+    that production mesh under a fake process group of 512 ranks (started
+    here unless one is initialized); ``mesh`` gives another ``DeviceMesh``
+    of the initialized group in its place (a test's)."""
+    _check_mesh(mesh_name)
+    if mesh_name == MESH and mesh is None:
+        return _analyze(arch, shape_name, mesh_name, None, cfg_overrides,
+                        shape_overrides)
+    cfg_overrides = {"use_flash": False, **(cfg_overrides or {})}
+    with lmesh.fake_process_group():
+        if mesh is None:
+            mesh = lmesh.make_production_mesh(
+                multi_pod=mesh_name == "multipod")
+        return _analyze(arch, shape_name, mesh_name, mesh, cfg_overrides,
+                        shape_overrides)
+
+
+def _analyze(arch, shape_name, mesh_name, mesh, cfg_overrides,
+             shape_overrides) -> dict:
     step, args, spec = build_cell(arch, shape_name, cfg_overrides,
-                                  shape_overrides)
+                                  shape_overrides, mesh=mesh)
     cfg, shape = spec["cfg"], spec["shape"]
-    steps = token_loop_steps(cfg, shape)
-    if steps > TOKEN_LOOP_LIMIT:
-        raise ValueError(
-            f"not counted: the sLSTM token loop (models/xlstm.py) would run "
-            f"{steps:,} Python steps on meta (seq_len {shape.seq_len:,} x "
-            f"{cfg.n_layers // cfg.slstm_every} sLSTM layers"
-            f"{' x 3 (forward, remat, backward)' if shape.kind == 'train' else ''}"
-            f"), over the dry-run's limit of {TOKEN_LOOP_LIMIT:,}")
+    sharded = (contextlib.nullcontext() if mesh is None else
+               _sharded(spec["rules"], mesh))
     t0 = time.perf_counter()
-    oc, memory = count_step(step, args, shape.kind == "train")
+    with sharded:
+        oc, memory = count_step(step, args, shape.kind == "train")
     t_count = time.perf_counter() - t0
     costs = oc.rollup()
+    chips = 1 if mesh is None else mesh.size()
 
     n_params = api.n_params(cfg)
     mf = rt.model_flops(cfg, n_params, shape.kind, shape.seq_len,
@@ -156,7 +194,7 @@ def analyze_cell(arch: str, shape_name: str, mesh_name: str = MESH,
         flops_per_chip=costs.flops,
         hbm_bytes_per_chip=costs.bytes_major,
         wire_bytes_per_chip=costs.coll_wire,
-        chips=CHIPS,
+        chips=chips,
         model_flops_global=mf,
         attn_flops_global=af,
     )
@@ -164,8 +202,8 @@ def analyze_cell(arch: str, shape_name: str, mesh_name: str = MESH,
         "arch": arch,
         "shape": shape_name,
         "mesh": mesh_name,
-        "mesh_dims": {MESH: CHIPS},
-        "chips": CHIPS,
+        "mesh_dims": {MESH: 1} if mesh is None else lmesh.mesh_dims(mesh),
+        "chips": chips,
         "kind": shape.kind,
         "n_params": n_params,
         "n_params_active": rt.active_params(cfg, n_params),
@@ -187,12 +225,12 @@ def analyze_cell(arch: str, shape_name: str, mesh_name: str = MESH,
             "operand_bytes": costs.coll_operand,
             "wire_bytes": costs.coll_wire,
             "by_op": costs.coll_by_op,
-            "flat_structure": {"by_op": {}, "count": 0, "operand_bytes": 0,
-                               "wire_bytes": 0},
+            "flat_structure": coll.summarize(oc.collectives),
         },
         "kernels": {"calls": dict(oc.kernel_calls),
                     "plain_backwards": oc.plain_backwards},
-        "roofline": terms.to_dict(),
+        "roofline": terms.to_dict() | (
+            {} if mesh is None else {"collective_note": COLLECTIVE_NOTE}),
         "timing": {"lower_s": None, "compile_s": None, "count_s": t_count},
         "overrides": {"cfg": cfg_overrides or {}, "rules": {},
                       "shape": shape_overrides or {}},
@@ -203,7 +241,7 @@ def run_cells(cells, out_dir: str = OUT_DIR, skip_existing: bool = False,
               cfg_overrides: dict | None = None,
               shape_overrides: dict | None = None) -> list[dict]:
     for _, _, mesh_name in cells:
-        _refuse_mesh(mesh_name)
+        _check_mesh(mesh_name)
     os.makedirs(out_dir, exist_ok=True)
     results = []
     for arch, shape_name, mesh_name in cells:
@@ -220,6 +258,7 @@ def run_cells(cells, out_dir: str = OUT_DIR, skip_existing: bool = False,
             r = res["roofline"]
             print(f"[ok] {tag}: flops={r['flops_per_chip']:.3e} "
                   f"bytes={r['hbm_bytes_per_chip']:.3e} "
+                  f"wire={r['wire_bytes_per_chip']:.3e} "
                   f"peak={res['memory']['peak_bytes_per_chip'] / 1e9:.2f}GB "
                   f"bottleneck={r['bottleneck']} "
                   f"(count {res['timing']['count_s']:.1f}s)")
@@ -235,7 +274,7 @@ def run_cells(cells, out_dir: str = OUT_DIR, skip_existing: bool = False,
     return results
 
 
-def all_cells(mesh_names=(MESH,)):
+def all_cells(mesh_names=("single", "multipod")):
     cells = []
     for arch in configs.ARCHS:
         cfg = configs.get_config(arch)
@@ -252,22 +291,35 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default=None, choices=list(configs.ARCHS))
     p.add_argument("--shape", default=None, choices=list(configs.SHAPES))
-    p.add_argument("--all", action="store_true")
+    p.add_argument("--all", action="store_true",
+                   help="every cell on both production meshes")
     p.add_argument("--multi-pod", action="store_true",
-                   help="the multi-pod mesh (the multi-card row, A14b: "
-                        "refused)")
+                   help="use the 2x16x16 multi-pod mesh for --arch/--shape")
+    p.add_argument("--card", action="store_true",
+                   help="count --arch/--shape on one card")
+    p.add_argument("--single-pod-only", action="store_true")
+    p.add_argument("--multi-pod-only", action="store_true")
+    p.add_argument("--card-only", action="store_true",
+                   help="--all on one card (the one-card sweep)")
     p.add_argument("--out", default=OUT_DIR)
     p.add_argument("--skip-existing", action="store_true")
     args = p.parse_args(argv)
 
-    if args.multi_pod:
-        _refuse_mesh("multipod")
     if args.all:
-        cells = all_cells()
+        names = ("single", "multipod")
+        if args.single_pod_only:
+            names = ("single",)
+        if args.multi_pod_only:
+            names = ("multipod",)
+        if args.card_only:
+            names = (MESH,)
+        cells = all_cells(names)
     else:
         if not (args.arch and args.shape):
             p.error("--arch and --shape, or --all")
-        cells = [(args.arch, args.shape, MESH)]
+        name = ("multipod" if args.multi_pod else
+                MESH if args.card else "single")
+        cells = [(args.arch, args.shape, name)]
     results = run_cells(cells, args.out, args.skip_existing)
     n_fail = sum(1 for r in results if "error" in r)
     print(f"\n{len(results) - n_fail}/{len(results)} cells OK")

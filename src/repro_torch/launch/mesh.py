@@ -15,21 +15,35 @@ multi-card path on the CPU and ``chip_smoke.py`` on one card.
 
 ``make_ensemble_mesh`` is the root-parallel forest's 1-D ``"ens"`` mesh
 (``core.root_parallel``). ``make_host_mesh`` factors whatever devices there
-are into ``("data", "model")``. ``make_production_mesh`` (the 256- and
-512-card LM meshes) belongs to the sharded analysis, ROADMAP.md A14b, and
-refuses.
+are into ``("data", "model")``.
+
+``make_production_mesh`` is the reference's pair of LM meshes, the
+sharded analysis's (``launch.dryrun``): single pod (16, 16) over ("data",
+"model"), 256 ranks; multi-pod (2, 16, 16) over ("pod", "data", "model"),
+512 ranks. Those are ``torch.distributed`` ``DeviceMesh``es over the first
+256 or 512 ranks of the initialized process group: one process is one rank,
+and a sharded step runs that rank's share under DTensor
+(``sharding.rules.shard``). ``fake_process_group`` starts the group the
+dry-run counts on: the ``"fake"`` backend, whose collectives move nothing,
+with this process as rank 0 of 512. ``mesh_dims`` and ``axis_names`` take
+either kind of mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import numpy as np
 import torch
 
-A14B = ("the sharded analysis (ROADMAP.md A14b: the production meshes, "
-        "counted under DTensor on a fake process group)")
+# the reference's production meshes: name -> (shape, axis names)
+PRODUCTION_MESHES = {
+    "single": ((16, 16), ("data", "model")),
+    "multipod": ((2, 16, 16), ("pod", "data", "model")),
+}
+FAKE_WORLD = 512
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -90,10 +104,47 @@ def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...],
     return Mesh(devices=grid.reshape(shape), axis_names=tuple(axis_names))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The (16, 16) or (2, 16, 16) LM mesh: not ported (A14b)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    raise NotImplementedError(f"make_production_mesh {shape}: {A14B}")
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu"):
+    """The (16, 16) ("data", "model") or (2, 16, 16) ("pod", "data",
+    "model") ``DeviceMesh`` over the first 256 or 512 ranks of the
+    initialized process group (the single-pod mesh also inside a 512-rank
+    world). ``device_type`` is where the ranks' shards live: ``"cpu"``
+    also for ``meta`` shards, ``"cuda"`` for shards on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape, axes = PRODUCTION_MESHES["multipod" if multi_pod else "single"]
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < need:
+        raise RuntimeError(
+            f"mesh {shape} needs {need} ranks, found {have}. For the dry-run "
+            f"start a fake process group of {FAKE_WORLD} ranks first "
+            "(launch.mesh.fake_process_group; launch.dryrun does this).")
+    return DeviceMesh(device_type, torch.arange(need).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int = FAKE_WORLD, rank: int = 0):
+    """A ``"fake"`` process group of ``world_size`` ranks with this process
+    as ``rank``, unless a group is already initialized (then that one is
+    used, and left as it is). Its collectives return at once and write
+    nothing: what a sharded step counts or times under it is one rank's own
+    work. Torn down on exit only if this call started it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world_size)
+    try:
+        yield
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def make_ensemble_mesh(devices=None) -> Mesh:
@@ -126,5 +177,15 @@ def make_host_mesh(model_axis: int | None = None, devices=None) -> Mesh:
     return make_mesh((n // m, m), ("data", "model"), devs)
 
 
+def axis_names(mesh) -> tuple[str, ...]:
+    """A ``Mesh``'s ``axis_names`` (or a duck-typed mesh's) or a
+    ``DeviceMesh``'s dim names."""
+    names = getattr(mesh, "axis_names", None)
+    return tuple(mesh.mesh_dim_names if names is None else names)
+
+
 def mesh_dims(mesh) -> dict[str, int]:
-    return dict(zip(mesh.axis_names, (int(d) for d in mesh.devices.shape)))
+    """{axis name: size} of a ``Mesh`` or a ``DeviceMesh``."""
+    shape = (mesh.devices.shape if hasattr(mesh, "devices")
+             else tuple(mesh.mesh.shape))
+    return dict(zip(axis_names(mesh), (int(d) for d in shape)))

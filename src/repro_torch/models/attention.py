@@ -19,6 +19,18 @@ to q's dtype before the product with v.
 MLA's v head dim differs from its q/k head dim, which the flash kernel does
 not take: with ``use_flash`` it raises (``kernels.ops.flash_attention``), as
 the reference's Pallas wrapper fails on it.
+
+Sharded (inside an LM mesh, DTensor activations) the reference's
+annotations are ``shard`` calls at the same places, and two bodies run on
+each rank's local shards (``sharding.rules.local_region``): ``sdpa``'s (by
+heads — a rank's q heads against their kv heads, found from the rank's head
+offset when the kv heads do not divide the model axis and stay whole — or,
+over a cache whose length is split, by kv slices with the softmax's max and
+sum and the output all-reduced over the split) and the cache write's (each
+rank writes the rows whose position falls in its slice). Each is the one
+body the single-card path runs, given the split axes. The flash kernel does
+not run sharded, as the reference's dry-run never runs it (``use_flash``
+off).
 """
 
 from __future__ import annotations
@@ -26,10 +38,13 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, Spec, dense_spec, norm_spec
 from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.sharding import rules as shr
+from repro_torch.sharding.rules import shard
 
 NEG = -1e30
 
@@ -63,9 +78,16 @@ def gqa_specs(cfg: ModelConfig) -> dict:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul."""
+    """einsum("bsd,dhk->bshk") as one matmul (on DTensors, with the
+    product's h*k axis split only as far as the h heads divide)."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    w2 = w.to(x.dtype).reshape(d, h * k)
+    if isinstance(w2, DTensor):
+        w2 = shr.splittable_grad(w2, h)
+    y = x @ w2
+    if isinstance(y, DTensor):
+        y = shr.heads_splittable(y, h)
+    return y.reshape(*x.shape[:-1], h, k)
 
 
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
@@ -86,13 +108,28 @@ def _qkv(params, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     B, S, H, k = out.shape
-    return out.reshape(B, S, H * k) @ wo.to(out.dtype).reshape(H * k, -1)
+    flat = out.reshape(B, S, H * k)
+    if isinstance(flat, DTensor):
+        flat = shr.splittable_grad(flat, H)
+    return flat @ wo.to(out.dtype).reshape(H * k, -1)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          mask: torch.Tensor | None, scale: float | None = None) -> torch.Tensor:
     """q (B,Sq,H,hd), k/v (B,Skv,Hkv,hd) with GQA head-group broadcast;
-    ``mask`` (Sq, Skv) or (B, Sq, Skv) bool, True = attend."""
+    ``mask`` (Sq, Skv) or (B, Sq, Skv) bool, True = attend. On DTensors,
+    each rank's share (``_sdpa_sharded``)."""
+    if isinstance(q, DTensor):
+        return _sdpa_sharded(q, k, v, mask, scale)
+    return _sdpa_local(q, k, v, mask, scale)
+
+
+def _sdpa_local(q, k, v, mask, scale, kv_axes: tuple[str, ...] = ()):
+    """``sdpa``'s body. With the kv length split over the LM mesh's
+    ``kv_axes`` (inside a region, ``_sdpa_sharded``), k, v and the mask
+    are this rank's slice: the softmax's max (held constant: the softmax
+    does not depend on it) and sum and the output are all-reduced over the
+    split."""
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -102,9 +139,61 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         m = mask[:, None, None] if mask.dim() == 3 else mask
         scores = torch.where(m, scores, NEG)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if kv_axes:
+        mx = shr.all_reduce(scores.detach().amax(dim=-1, keepdim=True),
+                            "max", kv_axes)
+        e = torch.exp(scores - mx)
+        den = shr.all_reduce(e.sum(dim=-1, keepdim=True), "sum", kv_axes,
+                             grad="sum")
+        probs = (e / den).to(q.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = shr.all_reduce(out, "sum", kv_axes)
     return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def _sdpa_sharded(q, k, v, mask, scale):
+    """``sdpa`` on one rank's shards. Over a cache whose length is split
+    (decode: ``kv_len`` on the mesh) every rank scores all q heads against
+    its kv slice (``_sdpa_local`` over ``kv_axes``). Otherwise by heads:
+    the rank's q heads against their kv heads — when the kv heads stay
+    whole (they do not divide the model axis), the ones the rank's q heads
+    map to from its head offset."""
+    B, Sq, H, _ = q.shape
+    Hkv, dv = k.shape[2], v.shape[-1]
+    m_ax = None
+    kv_axes = shr.sharded_axes(k, 1)
+    if kv_axes:
+        if mask is not None:
+            m_ax = ("batch", None, "kv_len") if mask.dim() == 3 else (
+                None, "kv_len")
+        kv = ("batch", "kv_len", None, None)
+        return shr.local_region(
+            lambda q, k, v, mask: _sdpa_local(q, k, v, mask, scale, kv_axes),
+            [q, k, v, mask], [("batch", None, None, None), kv, kv, m_ax],
+            (("batch", None, None, None), (B, Sq, H, dv)))
+
+    q_ax = ("batch", None, "heads", None)
+    kv_ax = ("batch", None, "kv_heads", None)
+    head_axes = shr.spec_axes(q_ax, q.shape, 2)
+    if mask is not None:
+        m_ax = ("batch", None, None) if mask.dim() == 3 else (None, None)
+
+    def local(q, k, v, mask):
+        Hl, G = q.shape[2], H // Hkv
+        if k.shape[2] * G != Hl:
+            # the kv heads stay whole (they do not divide the axis that
+            # splits the q heads): each local q head takes its own kv head,
+            # found from the rank's head offset
+            h0 = shr.mesh_coord(head_axes)[0] * Hl
+            idx = torch.div(h0 + torch.arange(Hl, device=q.device), G,
+                            rounding_mode="floor")
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        return _sdpa_local(q, k, v, mask, scale)
+
+    return shr.local_region(local, [q, k, v, mask], [q_ax, kv_ax, kv_ax, m_ax],
+                            (q_ax, (B, Sq, H, dv)))
 
 
 def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,7 +246,10 @@ def gqa_attention(params, cfg: ModelConfig, x: torch.Tensor,
     if pos is None:
         pos = _positions(S, x.device)
     q, k, v = _qkv(params, cfg, x, pos)
+    q = shard(q, ("batch", None, "heads", None))
+    k = shard(k, ("batch", None, "kv_heads", None))
     out = run_attention(cfg, q, k, v) if mask is None else sdpa(q, k, v, mask)
+    out = shard(out, ("batch", None, "heads", None))
     return _out_proj(out, params["wo"])
 
 
@@ -166,8 +258,10 @@ def gqa_prefix_attention(params, cfg: ModelConfig, x: torch.Tensor,
     """Prefix-LM attention (PaliGemma): bidirectional over the first
     ``prefix_len`` positions, causal after."""
     q, k, v = _qkv(params, cfg, x, _positions(x.shape[1], x.device))
-    return _out_proj(run_attention(cfg, q, k, v, prefix_len=prefix_len),
-                     params["wo"])
+    q = shard(q, ("batch", None, "heads", None))
+    out = run_attention(cfg, q, k, v, prefix_len=prefix_len)
+    out = shard(out, ("batch", None, "heads", None))
+    return _out_proj(out, params["wo"])
 
 
 # ------------------------------------------------------------ GQA + cache ----
@@ -187,11 +281,13 @@ def check_positions(pos, Smax: int) -> None:
     """Raise ``IndexError`` unless every decode position lies in [0, Smax).
 
     ``pos`` is a Python int (checked on the host) or a (B,) tensor (one
-    host read). The JAX package's per-row ``dynamic_update_slice`` clamps a
+    host read; a DTensor's local rows). The JAX package's per-row ``dynamic_update_slice`` clamps a
     start that is out of range; the search never produces one, so here it
     is an error. A decode step checks once (``transformer.lm_decode``), not
     once per layer and cache leaf. A ``meta`` tensor (the dry-run's,
     ``launch.dryrun``) has no values to check."""
+    if isinstance(pos, DTensor):
+        pos = pos.to_local()
     if isinstance(pos, int):
         if not 0 <= pos < Smax:
             raise IndexError(f"decode position {pos} outside [0, {Smax})")
@@ -206,13 +302,50 @@ def update_cache_at(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor
     ``pos`` — a Python int shared by every row, or a (B,) tensor of
     per-row positions — IN PLACE, and return ``cache``. The positions are
     range-checked once a decode step by ``lm_decode`` (``check_positions``).
+    On DTensors each rank writes the rows whose position falls in its
+    slice of the cache's length (``_update_cache_sharded``).
     """
+    if isinstance(cache, DTensor):
+        return _update_cache_sharded(cache, new, pos)
+    return _write_at(cache, new, pos)
+
+
+def _write_at(cache, new, pos, kv_axes: tuple[str, ...] = ()):
+    """``update_cache_at``'s body. With the cache's length split over the
+    LM mesh's ``kv_axes`` (inside a region), ``cache`` is this rank's
+    slice: a row whose position lies outside it rewrites its own current
+    value, so every rank runs the same ops."""
     if isinstance(pos, int):
         cache[:, pos] = new[:, 0].to(cache.dtype)
         return cache
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos.reshape(-1).long()] = new[:, 0].to(cache.dtype)
+    val = new[:, 0].to(cache.dtype)
+    p = pos.reshape(-1).long()
+    if kv_axes:
+        S = cache.shape[1]
+        p = p - shr.mesh_coord(kv_axes)[0] * S
+        ok = ((p >= 0) & (p < S)).reshape(-1, *([1] * (new.dim() - 2)))
+        p = p.clamp(0, S - 1)
+        val = torch.where(ok, val, cache[rows, p])
+    cache[rows, p] = val
     return cache
+
+
+def _update_cache_sharded(cache, new, pos):
+    """``update_cache_at`` on one rank's shard (``_write_at`` over the
+    cache's split of Smax); the cache keeps its placements. The positions
+    are the inputs' own, never a collective's."""
+    kv_axes = shr.sharded_axes(cache, 1)
+    if isinstance(pos, int):
+        pos = torch.full((cache.shape[0],), pos, dtype=torch.int32,
+                         device=cache.to_local().device)
+    new_pl = tuple(Replicate() if p.is_shard(1) else p
+                   for p in cache.placements)
+    return shr.local_region(
+        lambda c, n, p: _write_at(c, n, p, kv_axes), [cache, new,
+                                                      pos.reshape(-1)],
+        [cache.placements, new_pl, ("batch",)],
+        (cache.placements, tuple(cache.shape)))
 
 
 def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos):
@@ -227,6 +360,8 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos):
     q, k_new, v_new = _qkv(params, cfg, x, pos_b)
     update_cache_at(k_cache, k_new, pos if isinstance(pos, int) else pos_b)
     update_cache_at(v_cache, v_new, pos if isinstance(pos, int) else pos_b)
+    k_cache = shard(k_cache, ("batch", "kv_len", "kv_heads", None))
+    v_cache = shard(v_cache, ("batch", "kv_len", "kv_heads", None))
     Smax = k_cache.shape[1]
     valid = torch.arange(Smax, device=x.device)[None, :] <= pos_b  # (B, Smax)
     out = sdpa(q, k_cache.to(x.dtype), v_cache.to(x.dtype),
@@ -318,6 +453,7 @@ def mla_decode(params, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos):
     wpos = pos if isinstance(pos, int) else pos_b
     update_cache_at(c_cache, c_new, wpos)
     update_cache_at(pe_cache, pe_new, wpos)
+    c_cache = shard(c_cache, ("batch", "kv_len", None))
     q, k, v, scale = _mla_qkv(params, cfg, x, pos_b, c_cache.to(dt),
                               pe_cache.to(dt))
     Smax = c_cache.shape[1]

@@ -21,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -154,15 +155,39 @@ def store_layer(buf: dict | None, i: int, n: int, tree: dict) -> dict:
     """Copy layer i's tree of tensors into ``buf``, the stack of n such
     trees along a new leading axis (made from the first one to arrive when
     ``buf`` is None), and return ``buf``: the layer-stacked caches of the
-    JAX package's scans, without holding every layer's tree twice."""
+    JAX package's scans, without holding every layer's tree twice. A
+    DTensor layer's stack keeps its split (``_stack_buffer``)."""
     if buf is None:
-        buf = tree_map(lambda t: t.new_empty((n, *t.shape)), tree)
+        buf = tree_map(lambda t: _stack_buffer(t, n), tree)
     for k, v in tree.items():
         if isinstance(v, dict):
             store_layer(buf[k], i, n, v)
         else:
             buf[k][i].copy_(v)
     return buf
+
+
+def _stack_buffer(t: torch.Tensor, n: int) -> torch.Tensor:
+    """An empty (n, *t.shape) stack for n tensors like ``t``. For a DTensor
+    each rank allocates only its block, split where ``t`` is evenly split,
+    one axis further in (DTensor's ``new_empty`` would make the whole
+    stack on every rank)."""
+    if not isinstance(t, DTensor):
+        return t.new_empty((n, *t.shape))
+    mesh = t.device_mesh
+    shape = [n, *t.shape]
+    pl = []
+    for i, p in enumerate(t.placements):
+        if type(p) is Shard and shape[p.dim + 1] % mesh.size(i) == 0:
+            shape[p.dim + 1] //= mesh.size(i)
+            pl.append(Shard(p.dim + 1))
+        else:
+            pl.append(Replicate())
+    local = t.to_local().new_empty(shape)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=(n, *t.shape),
+                              stride=torch.empty((n, *t.shape),
+                                                 device="meta").stride())
 
 
 def unstack(tree: dict, n: int) -> list[dict]:

@@ -17,6 +17,10 @@ hd), computed once by the prefill and never written again.
 As in the reference (DESIGN.md §5): RoPE replaces seamless's learned or
 relative positions, and the conformer convolution module of the speech
 encoder is outside the backbone.
+
+Sharded (inside an LM mesh) the reference's eight annotations — the
+encoder's q heads, each block's residual at its edges, the frontend's and
+the embedding's outputs — are ``shard`` calls at the same places.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from repro_torch.models.common import (ModelConfig, dense_spec, norm_spec,
                                        store_layer, tree_map)
 from repro_torch.models.layers import (chunked_ce_loss, embed, embed_specs,
                                        mlp, mlp_specs, rmsnorm, unembed)
+from repro_torch.sharding.rules import shard
 
 
 # ------------------------------------------------------------------ blocks ----
@@ -42,9 +47,11 @@ def enc_block_fwd(p, cfg: ModelConfig, x):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn._qkv(p["attn"], cfg, h, attn._positions(h.shape[1],
                                                           h.device))
-    x = x + attn._out_proj(attn.sdpa(q, k, v, None), p["attn"]["wo"])
+    q = shard(q, ("batch", None, "heads", None))
+    x = shard(x + attn._out_proj(attn.sdpa(q, k, v, None), p["attn"]["wo"]),
+              ("batch", "act_seq", None))
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], cfg, h)
+    return shard(x + mlp(p["mlp"], cfg, h), ("batch", "act_seq", None))
 
 
 def dec_block_specs(cfg: ModelConfig) -> dict:
@@ -67,12 +74,12 @@ def _cross_apply(p, x, k, v, scale=None):
 
 def dec_block_fwd(p, cfg: ModelConfig, x, memory):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_attention(p["attn"], cfg, h)        # causal
+    x = shard(x + attn.gqa_attention(p["attn"], cfg, h), ("batch", "act_seq", None))   # causal
     h = rmsnorm(x, p["lnx"], cfg.norm_eps)
     k, v = _cross_kv(p["xattn"], memory)
-    x = x + _cross_apply(p["xattn"], h, k, v)
+    x = shard(x + _cross_apply(p["xattn"], h, k, v), ("batch", "act_seq", None))
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], cfg, h)
+    return shard(x + mlp(p["mlp"], cfg, h), ("batch", "act_seq", None))
 
 
 def dec_block_prefill(p, cfg: ModelConfig, x, memory, max_len: int):
@@ -115,6 +122,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_src, frame_dim) stub embeddings -> memory (B, S_src, d)."""
     (enc, _), params = tfm._layers(params, cfg), tfm.as_tree(params)
     x = frames.to(cfg.cdtype) @ params["frontend"].to(cfg.cdtype)
+    x = shard(x, ("batch", "act_seq", None))
     fwd = tfm._maybe_remat(enc_block_fwd, cfg)
     for lp in enc:
         x = fwd(lp, cfg, x)
@@ -125,7 +133,7 @@ def encdec_hidden(params, cfg: ModelConfig, frames, tokens) -> torch.Tensor:
     """(frames, tokens (B, S)) -> the decoder's final-norm hidden states."""
     memory = encode(params, cfg, frames)
     (_, dec), params = tfm._layers(params, cfg), tfm.as_tree(params)
-    x = embed(params["embed"], tokens, cfg)
+    x = shard(embed(params["embed"], tokens, cfg), ("batch", "act_seq", None))
     fwd = tfm._maybe_remat(dec_block_fwd, cfg)
     for lp in dec:
         x = fwd(lp, cfg, x, memory)

@@ -2,6 +2,13 @@
 embeddings, the token cross-entropy and its sequence-chunked form (port of
 ``repro.models.layers``).
 
+Sharded (DTensor activations inside an LM mesh) the reference's three
+annotations — the MLP's hidden (``mlp``), the embedded tokens, the logits
+(``vocab``) — are ``shard`` calls, and the embedding lookup from a table
+split over ``vocab`` is a region on each rank's rows of the table: the
+tokens it holds are looked up, the rest give zeros, and the sum over the
+split is the embedding (``_embed_sharded``).
+
 Each function rounds where its JAX twin rounds: ``rmsnorm`` normalises in
 float32 and casts before the weight multiply (the ``"model"`` order of the
 norm kernel), ``apply_rope`` rotates in float32 and casts back, matmuls run
@@ -14,17 +21,23 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, Spec, activation, dense_spec
+from repro_torch.sharding import rules as shr
+from repro_torch.sharding.rules import shard
 
 
 # -------------------------------------------------------------------- norm ----
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """The model's norm: ``(x32 * rsqrt(mean(x32^2) + eps)).astype(dt) *
     w.astype(dt)``. On the card this is the rmsnorm kernel (its ``"model"``
-    order), which takes a contiguous x; on the CPU its plain version."""
+    order), which takes a contiguous x; on the CPU its plain version. A
+    DTensor's normed axis is gathered whole first (the kernel norms whole
+    rows)."""
+    x = shr.whole_dims(x, (x.dim() - 1,))
     return ops.rmsnorm(x.contiguous(), w, eps=eps, order="model")
 
 
@@ -99,6 +112,7 @@ def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = act(x @ params["wg"].to(dt)) * (x @ params["wu"].to(dt))
     else:
         h = act(x @ params["wu"].to(dt))
+    h = shard(h, ("batch", None, "mlp"))
     return h @ params["wd"].to(dt)
 
 
@@ -112,7 +126,37 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embedding"][tokens.long()].to(cfg.cdtype)
+    w = params["embedding"]
+    if isinstance(w, DTensor):
+        x = _embed_sharded(w, tokens)
+    else:
+        x = _lookup(w, tokens)
+    return shard(x.to(cfg.cdtype), ("batch", None, None))
+
+
+def _lookup(w, tokens, v_axes: tuple[str, ...] = ()):
+    """``embed``'s lookup. With the table's rows split over the LM mesh's
+    ``v_axes`` (inside a region), ``w`` is this rank's rows: a token
+    outside them gives zeros, and the sum over the split is the
+    embedding."""
+    tok = tokens.long()
+    if not v_axes:
+        return w[tok]
+    lt = tok - shr.mesh_coord(v_axes)[0] * w.shape[0]
+    ok = (lt >= 0) & (lt < w.shape[0])
+    x = w[lt.clamp(0, w.shape[0] - 1)] * ok[..., None].to(w.dtype)
+    return shr.all_reduce(x, "sum", v_axes)
+
+
+def _embed_sharded(w, tokens):
+    """The lookup on one rank (``_lookup``): its rows of the table
+    (``vocab`` split, the ``embed`` axis gathered), its tokens."""
+    V, d = w.shape
+    v_axes = shr.spec_axes(("vocab", None), (V, d), 0)
+    t_ax = ("batch",) + (None,) * (tokens.dim() - 1)
+    return shr.local_region(lambda w, t: _lookup(w, t, v_axes), [w, tokens],
+                            [("vocab", None), t_ax],
+                            (t_ax + (None,), (*tokens.shape, d)))
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -120,17 +164,49 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         w = params["embedding"].T.to(x.dtype)
     else:
         w = params["unembed"].to(x.dtype)
-    return x @ w
+    return shard(x @ w, ("batch", None, "vocab"))
 
 
 # -------------------------------------------------------------------- loss ----
-def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _nll(logits: torch.Tensor, targets: torch.Tensor,
+         v_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """Per-token negative log-likelihood in float32: logsumexp minus the
-    target's logit."""
+    target's logit. On DTensors, each rank's share (``_nll_sharded``).
+    With the vocab split over the LM mesh's ``v_axes`` (inside a region),
+    ``logits`` are this rank's slice: the logsumexp's max and sum are
+    all-reduced over the split, and the target's logit is looked up by the
+    rank that holds it (zeros elsewhere) and summed over the split."""
+    if isinstance(logits, DTensor):
+        return _nll_sharded(logits, targets)
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if v_axes:
+        Vl = logits.shape[-1]
+        mx = shr.all_reduce(logits.detach().amax(dim=-1, keepdim=True),
+                            "max", v_axes)
+        se = torch.exp(logits - mx).sum(dim=-1)
+        tg = targets.long() - shr.mesh_coord(v_axes)[0] * Vl
+        ok = (tg >= 0) & (tg < Vl)
+        tg = tg.clamp(0, Vl - 1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        tg = targets.long()
+    ll = torch.gather(logits, -1, tg[..., None])[..., 0]
+    if v_axes:
+        ll = ll * ok.to(ll.dtype)
+        se = shr.all_reduce(se, "sum", v_axes)
+        ll = shr.all_reduce(ll, "sum", v_axes)
+        lse = torch.log(se) + mx[..., 0]
     return lse - ll
+
+
+def _nll_sharded(logits, targets):
+    """``_nll`` on one rank: its rows and its slice of the ``vocab``
+    axis."""
+    B, S, V = logits.shape
+    v_axes = shr.spec_axes(("batch", None, "vocab"), (B, S, V), 2)
+    return shr.local_region(
+        lambda lg, tg: _nll(lg, tg, v_axes), [logits, targets],
+        [("batch", None, "vocab"), ("batch", None)], (("batch", None), (B, S)))
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -9,8 +9,18 @@ ranks at or past the capacity C go to the drop row ``E*C``. The (E, C)
 slots are filled by one gather from the inverted slot -> token index, the
 expert FFNs run as one batched product over the expert axis, and each
 token's k results are gathered back and summed in choice order, a dropped
-choice's combine weight zeroed. On one card there is no expert
-parallelism: the JAX package's sharding annotations have no counterpart.
+choice's combine weight zeroed.
+
+Sharded, the reference's five annotations are ``shard`` calls — the
+groups over ``expert_group`` (data), the slot index and the expert buffers
+over ``expert`` (model) as well — and three regions run on each rank's
+shards (``sharding.rules.local_region``), bounded by those annotations:
+the routing and dispatch plan (a stable sort, ``cummax`` and scatters,
+which DTensor has no strategy for; group-local), the gather of each
+expert's slots from its group's tokens (a rank gathers only its own
+experts' rows: the buffer is born split over experts, no all-to-all), and
+the combine (each rank gathers the choices that landed on its experts,
+zeros elsewhere, and the sum over the expert split is all-reduced).
 
 Covers DeepSeek-V2 (2 shared + 160 routed, top-6, softmax gate) and
 Qwen3-MoE (128 routed, top-8, normalized top-k probs). The Switch-style
@@ -23,9 +33,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import ModelConfig, Spec, activation
 from repro_torch.models.layers import mlp, mlp_specs
+from repro_torch.sharding import rules as shr
+from repro_torch.sharding.rules import shard
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -104,38 +117,106 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     act = activation(cfg.act)
 
-    xg = x.reshape(G, gs, d)
+    xg = shard(x.reshape(G, gs, d), ("expert_group", None, None))
     logits = xg @ params["router"].to(dt)                    # (G, gs, E)
-    topi, topw = router_topk(logits, k, cfg.norm_topk_prob)  # (G, gs, k)
-    inv, slot_by_token = dispatch(topi, E, C)
-
-    # ---- dispatch: one gather from the token rows (+ a zero row) --------
-    xg_pad = torch.cat([xg, torch.zeros((G, 1, d), dtype=dt, device=x.device)],
-                       dim=1)
-    g_idx = torch.arange(G, device=x.device)[:, None, None]
-    buf = xg_pad[g_idx, inv]                                 # (G, E, C, d)
-
-    # ---- expert FFN: one batched product over the expert axis -----------
-    be = buf.permute(1, 0, 2, 3).reshape(E, G * C, d)
-    h = act(torch.bmm(be, params["wg"].to(dt))) * torch.bmm(be, params["wu"].to(dt))
-    out_buf = torch.bmm(h, params["wd"].to(dt))              # (E, G*C, d)
-    out_buf = out_buf.reshape(E, G, C, d).permute(1, 0, 2, 3)  # (G, E, C, d)
-
-    # ---- combine: per-choice gather, summed in choice order --------------
-    dropped = slot_by_token >= E * C
-    clamped = torch.clamp(slot_by_token, max=E * C - 1)
-    e_idx, c_idx = clamped // C, clamped % C                 # (G, gs, k)
-    w_eff = torch.where(dropped, 0.0, topw).to(dt)
-    g_idx = torch.arange(G, device=x.device)[:, None]
-    yg = torch.zeros((G, gs, d), dtype=dt, device=x.device)
-    for j in range(k):
-        gj = out_buf[g_idx, e_idx[:, :, j], c_idx[:, :, j]]  # (G, gs, d)
-        yg = yg + w_eff[:, :, j][:, :, None] * gj
+    if isinstance(xg, DTensor):
+        yg = _moe_sharded(params, cfg, xg, logits, E, k, C)
+    else:
+        topw, inv, slot_by_token = _plan(logits, cfg, E, k, C)
+        buf = _gather_slots(xg, inv)
+        out_buf = _experts(params, act, buf, dt)
+        yg = _combine(out_buf, slot_by_token, topw, E, C)
     y = yg.reshape(B, S, d)
 
     if cfg.n_shared_experts > 0:
         y = y + mlp(params["shared"], cfg, x)
     return y
+
+
+def _plan(logits, cfg: ModelConfig, E: int, k: int, C: int):
+    """Routing and the dispatch plan of (G, gs, E) logits: (combine
+    weights, inv, slot_by_token), as ``router_topk`` and ``dispatch``."""
+    topi, topw = router_topk(logits, k, cfg.norm_topk_prob)  # (G, gs, k)
+    inv, slot_by_token = dispatch(topi, E, C)
+    return topw, inv, slot_by_token
+
+
+def _gather_slots(xg, inv):
+    """The dispatch: each expert slot's token row gathered from its group's
+    tokens (G, gs, d) and a zero row (the empty slots' index ``gs``), one
+    gather -> (G, E', C, d) for the experts ``inv`` (G, E', C) covers."""
+    G, _, d = xg.shape
+    xg_pad = torch.cat([xg, torch.zeros((G, 1, d), dtype=xg.dtype,
+                                        device=xg.device)], dim=1)
+    g_idx = torch.arange(G, device=xg.device)[:, None, None]
+    return xg_pad[g_idx, inv]
+
+
+def _experts(params, act, buf, dt):
+    """The expert FFNs over (G, E, C, d) slots: one batched product over
+    the expert axis."""
+    G, E, C, d = buf.shape
+    be = buf.permute(1, 0, 2, 3).reshape(E, G * C, d)
+    h = act(torch.bmm(be, params["wg"].to(dt))) * torch.bmm(be, params["wu"].to(dt))
+    out_buf = torch.bmm(h, params["wd"].to(dt))              # (E, G*C, d)
+    return out_buf.reshape(E, G, C, d).permute(1, 0, 2, 3)
+
+
+def _combine(out_buf, slot_by_token, topw, E: int, C: int,
+             e_axes: tuple[str, ...] = ()):
+    """The combine: each token's k expert results gathered from
+    ``out_buf`` (G, E', C, d) and summed in choice order, a dropped
+    choice's weight zeroed. With the experts split over the LM mesh's
+    ``e_axes`` (inside a region), ``out_buf`` holds this rank's E' experts
+    only: a choice of another rank's expert weighs 0 here, and the sum over
+    the split is all-reduced."""
+    G, El, _, d = out_buf.shape
+    gs, k = slot_by_token.shape[1:]
+    dt = out_buf.dtype
+    dropped = slot_by_token >= E * C
+    clamped = torch.clamp(slot_by_token, max=E * C - 1)
+    if e_axes:
+        e_idx = clamped // C - shr.mesh_coord(e_axes)[0] * El
+        c_idx = clamped % C
+        mine = (e_idx >= 0) & (e_idx < El) & ~dropped
+        w_eff = torch.where(mine, topw, 0.0).to(dt)
+        e_idx = e_idx.clamp(0, El - 1)
+    else:
+        e_idx, c_idx = clamped // C, clamped % C             # (G, gs, k)
+        w_eff = torch.where(dropped, 0.0, topw).to(dt)
+    g_idx = torch.arange(G, device=out_buf.device)[:, None]
+    yg = torch.zeros((G, gs, d), dtype=dt, device=out_buf.device)
+    for j in range(k):
+        gj = out_buf[g_idx, e_idx[:, :, j], c_idx[:, :, j]]  # (G, gs, d)
+        yg = yg + w_eff[:, :, j][:, :, None] * gj
+    return shr.all_reduce(yg, "sum", e_axes)
+
+
+def _moe_sharded(params, cfg: ModelConfig, xg, logits, E, k, C):
+    """The routed experts of ``moe_ffn`` on one rank's shards -> yg (G, gs,
+    d): ``_plan``, ``_gather_slots`` and ``_combine`` as regions bounded by
+    the reference's annotations (module docstring)."""
+    G, gs, d = xg.shape
+    grp = ("expert_group", None, None)
+    slot_ax = ("expert_group", "expert", None)
+    buf_ax = ("expert_group", "expert", None, None)
+
+    topw, inv, slot_by_token = shr.local_region(
+        lambda lg: _plan(lg, cfg, E, k, C), [logits], [grp],
+        [(grp, (G, gs, k)), (grp, (G, E, C)), (grp, (G, gs, k))])
+    inv = shard(inv, slot_ax)
+    e_axes = shr.spec_axes(slot_ax, (G, E, C), 1)
+
+    buf = shr.local_region(_gather_slots, [xg, inv], [grp, slot_ax],
+                           (buf_ax, (G, E, C, d)))
+    buf = shard(buf, buf_ax)
+    out_buf = _experts(params, activation(cfg.act), buf, xg.dtype)
+    out_buf = shard(out_buf, buf_ax)
+    yg = shr.local_region(
+        lambda ob, sbt, tw: _combine(ob, sbt, tw, E, C, e_axes),
+        [out_buf, slot_by_token, topw], [buf_ax, grp, grp],
+        (grp, (G, gs, d)))
+    return shard(yg, grp)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, topi: torch.Tensor,

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, Spec, dense_spec, norm_spec
 from repro_torch.models.layers import rmsnorm
+from repro_torch.sharding.rules import shard
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -105,7 +106,7 @@ def mamba2_forward(params, cfg: ModelConfig, x: torch.Tensor,
     cat = F.silu(_causal_conv(cat_pre, params["w_conv"], params["b_conv"]))
     xs, Bm, Cm = torch.split(cat, [d_inner, N, N], dim=-1)
 
-    xs = xs.reshape(Bsz, L, H, P)
+    xs = shard(xs.reshape(Bsz, L, H, P), ("batch", None, "ssm_heads", None))
     A = -torch.exp(params["A_log"].to(torch.float32))      # (H,)
     log_a = dt * A                                         # (B,L,H) f32, <=0
     xbar = xs * dt.to(dt_)[..., None]                      # (B,L,H,P)

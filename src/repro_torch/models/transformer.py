@@ -45,6 +45,7 @@ from repro_torch.models.common import (ModelConfig, dense_spec, norm_spec,
                                        tree_set, unstack)
 from repro_torch.models.layers import (chunked_ce_loss, embed, embed_specs,
                                        mlp, mlp_specs, rmsnorm, unembed)
+from repro_torch.sharding.rules import shard
 
 
 # ------------------------------------------------------------- layer plan ----
@@ -103,6 +104,11 @@ def _maybe_remat(f, cfg: ModelConfig):
     return remat
 
 
+def _edge(x):
+    """The block edge's annotation: (batch, act_seq, embed-whole)."""
+    return shard(x, ("batch", "act_seq", None))
+
+
 def _ffn(p, cfg: ModelConfig, h):
     return moe_mod.moe_ffn(p["moe"], cfg, h) if "moe" in p else mlp(p["mlp"], cfg, h)
 
@@ -122,13 +128,14 @@ def dense_block_specs(cfg: ModelConfig, use_moe: bool = False) -> dict:
 def dense_block_fwd(p, cfg: ModelConfig, x, prefix_len: int = 0):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
-        x = x + attn.mla_attention(p["attn"], cfg, h)
+        a = attn.mla_attention(p["attn"], cfg, h)
     elif prefix_len == 0:
-        x = x + attn.gqa_attention(p["attn"], cfg, h)
+        a = attn.gqa_attention(p["attn"], cfg, h)
     else:
-        x = x + attn.gqa_prefix_attention(p["attn"], cfg, h, prefix_len)
+        a = attn.gqa_prefix_attention(p["attn"], cfg, h, prefix_len)
+    x = _edge(x + a)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(p, cfg, h)
+    return _edge(x + _ffn(p, cfg, h))
 
 
 def dense_block_cache_specs(cfg: ModelConfig, batch: int, max_len: int, dtype):
@@ -172,9 +179,9 @@ def dense_block_prefill(p, cfg: ModelConfig, x, max_len: int,
     else:
         a, (k, v) = attn.gqa_prefill(p["attn"], cfg, h, prefix_len=prefix_len)
         cache = {"k": _pad_len(k, max_len), "v": _pad_len(v, max_len)}
-    x = x + a
+    x = _edge(x + a)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(p, cfg, h), cache
+    return _edge(x + _ffn(p, cfg, h)), cache
 
 
 def dense_block_decode(p, cfg: ModelConfig, x, cache, pos):
@@ -196,7 +203,7 @@ def mamba_block_specs(cfg: ModelConfig) -> dict:
 
 def mamba_block_fwd(p, cfg, x):
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
-    return x + ssm_mod.mamba2_forward(p["ssm"], cfg, h)
+    return _edge(x + ssm_mod.mamba2_forward(p["ssm"], cfg, h))
 
 
 def mamba_block_cache_specs(cfg, batch, max_len, dtype):
@@ -206,7 +213,7 @@ def mamba_block_cache_specs(cfg, batch, max_len, dtype):
 def mamba_block_prefill(p, cfg, x, max_len):
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     y, cache = ssm_mod.mamba2_forward(p["ssm"], cfg, h, return_cache=True)
-    return x + y, cache
+    return _edge(x + y), cache
 
 
 def mamba_block_decode(p, cfg, x, cache, pos):
@@ -217,12 +224,12 @@ def mamba_block_decode(p, cfg, x, cache, pos):
 
 # ------------------------------------------------------------ block: mlstm ----
 def mlstm_block_fwd(p, cfg, x):
-    return x + xlstm_mod.mlstm_forward(p, cfg, x)
+    return _edge(x + xlstm_mod.mlstm_forward(p, cfg, x))
 
 
 def mlstm_block_prefill(p, cfg, x, max_len):
     y, cache = xlstm_mod.mlstm_prefill(p, cfg, x)
-    return x + y, cache
+    return _edge(x + y), cache
 
 
 def mlstm_block_decode(p, cfg, x, cache, pos):
@@ -240,7 +247,7 @@ def xlstm_seg_specs(cfg: ModelConfig) -> dict:
 def xlstm_seg_fwd(p, cfg, x):
     for lp in p["mlstm"]:
         x = mlstm_block_fwd(lp, cfg, x)
-    return x + xlstm_mod.slstm_forward(p["slstm"], cfg, x)
+    return _edge(x + xlstm_mod.slstm_forward(p["slstm"], cfg, x))
 
 
 def xlstm_seg_cache_specs(cfg, batch, max_len, dtype):
@@ -255,7 +262,7 @@ def xlstm_seg_prefill(p, cfg, x, max_len):
         x, c = mlstm_block_prefill(lp, cfg, x, max_len)
         m_caches = store_layer(m_caches, j, len(p["mlstm"]), c)
     y, s_cache = xlstm_mod.slstm_prefill(p["slstm"], cfg, x)
-    return x + y, {"mlstm": m_caches, "slstm": s_cache}
+    return _edge(x + y), {"mlstm": m_caches, "slstm": s_cache}
 
 
 def xlstm_seg_decode(p, cfg, x, cache, pos):
@@ -437,6 +444,7 @@ def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     vision_width)) -> final-norm hidden states (B, [n_patches +] S, d)."""
     (stages, shared), params = _layers(params, cfg), as_tree(params)
     x, prefix_len = _embed_prefix(params, cfg, tokens, patches)
+    x = _edge(x)
     kw = {"prefix_len": prefix_len} if prefix_len else {}
     for (kind, _), stage in zip(layer_plan(cfg), stages):
         if kind == "zamba_seg":
@@ -478,6 +486,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
                    max_len)
     (stages, shared), params = _layers(params, cfg), as_tree(params)
     x, prefix_len = _embed_prefix(params, cfg, tokens, patches)
+    x = _edge(x)
     kw = {"prefix_len": prefix_len} if prefix_len else {}
     caches = {}
     for i, ((kind, _), stage) in enumerate(zip(layer_plan(cfg), stages)):

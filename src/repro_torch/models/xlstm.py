@@ -11,6 +11,12 @@ Gating: the forget gate through logsigmoid, the input gate exponential with
 the max-stabilizer m (float32). Every cast is where the reference casts.
 Decode steps write the new state into the cache they are given (in place),
 where the JAX package returns a new cache.
+
+Sharded (DTensor activations inside an LM mesh) the sLSTM token loop is a
+region on each rank's rows and heads (``_slstm_loop_sharded``): DTensor has
+no strategy for the logsigmoid's backward, and the recurrence needs its
+heads whole. The loop is a ``kernels.ops.token_loop``, which a roofline
+count on ``meta`` charges as one token step times its trips.
 """
 
 from __future__ import annotations
@@ -19,10 +25,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, Spec, dense_spec, norm_spec
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.ssm import _causal_conv, conv_step
+from repro_torch.sharding import rules as shr
 
 QKV_BLOCK = 4  # official xLSTM qkv_proj_blocksize (near-diagonal projections)
 CONV_K = 4
@@ -73,6 +82,8 @@ def _headwise(x: torch.Tensor, w: torch.Tensor, H: int) -> torch.Tensor:
     nb = d_in // QKV_BLOCK
     xb = x.reshape(-1, nb, QKV_BLOCK).transpose(0, 1)       # (nb, N, 4)
     y = torch.bmm(xb, w.to(x.dtype)).transpose(0, 1)        # (N, nb, 4)
+    if isinstance(y, DTensor):          # split the heads only as they divide
+        y = shr.heads_splittable(y.reshape(*lead, d_in), H)
     return y.reshape(*lead, H, d_in // H)
 
 
@@ -132,6 +143,8 @@ def _mlstm_chunked(params, cfg: ModelConfig, x: torch.Tensor):
     dev = x.device
     inf = float("inf")
     u, gate, q, k, v, i_t, f_t = _mlstm_qkv(params, cfg, x)
+    # the chunks reshape the sequence: whole on every rank when sharded
+    q, k, v, i_t, f_t = (shr.whole_dims(t, (1,)) for t in (q, k, v, i_t, f_t))
     k = k / math.sqrt(dk)
 
     qc = q.reshape(B, nc, Q, H, dk)
@@ -336,13 +349,17 @@ def slstm_specs(cfg: ModelConfig) -> dict:
 
 def _slstm_cell(params, gates_x: dict, state: tuple, H: int, dh: int):
     """One sLSTM step. gates_x: precomputed W·x (B,d) per gate; state (h,
-    c, n, m), h/c/n (B,H,dh) in the activations' dtype, m float32."""
+    c, n, m), h/c/n (B,H,dh) in the activations' dtype, m float32;
+    ``params[f"r_{g}"]`` the recurrent weights (H, dh, dh)."""
     h, c, n, m = state
     hh = h.transpose(0, 1)                                 # (H,B,dh)
 
     def rec(g):
         r = torch.bmm(hh, params[f"r_{g}"].to(h.dtype)).transpose(0, 1)
-        return gates_x[g].reshape(-1, H, dh) + r
+        gx = gates_x[g]
+        if isinstance(gx, DTensor):     # (decode) split only as heads divide
+            gx = shr.heads_splittable(gx, H)
+        return gx.reshape(-1, H, dh) + r
 
     i_t = rec("i").to(torch.float32)
     f_t = rec("f").to(torch.float32)
@@ -371,7 +388,9 @@ def _slstm_ffn(params, cfg: ModelConfig, hout: torch.Tensor) -> torch.Tensor:
 
 
 def _slstm_scan(params, cfg: ModelConfig, x: torch.Tensor):
-    """The token loop: (per-token h (B,L,d), final state, normed input)."""
+    """The token loop: (per-token h (B,L,d), final state, normed input).
+    On DTensors the loop runs on each rank's rows and heads
+    (``_slstm_loop_sharded``)."""
     B, L, d = x.shape
     H = cfg.n_heads
     dh = d // H
@@ -379,14 +398,55 @@ def _slstm_scan(params, cfg: ModelConfig, x: torch.Tensor):
     hin = rmsnorm(x, params["ln"], cfg.norm_eps)
     cpre = F.silu(_causal_conv(hin, params["w_conv"], params["b_conv"]))
     gx = _slstm_gates_x(params, cpre, hin, dt)
-    zeros = torch.zeros((B, H, dh), dtype=dt, device=x.device)
+    r = {f"r_{g}": params[f"r_{g}"] for g in GATES}
+    if isinstance(x, DTensor):
+        hs, st = _slstm_loop_sharded(r, gx, H, dh)
+    else:
+        hs, st = _slstm_loop(r, gx, H, dh)
+    return hs, st, hin
+
+
+def _slstm_loop(r: dict, gx: dict, H: int, dh: int):
+    """(h of every token (B, L, H*dh), final state) of the recurrence over
+    the gates' input parts ``gx`` (B, L, H*dh) and the recurrent weights
+    ``r`` (H, dh, dh), a ``kernels.ops.token_loop``."""
+    B, L, _ = gx["i"].shape
+    dt = gx["i"].dtype
+    zeros = torch.zeros((B, H, dh), dtype=dt, device=gx["i"].device)
     st = (zeros, zeros, zeros,
-          torch.full((B, H, dh), -1e30, dtype=torch.float32, device=x.device))
-    hs = []
-    for t in range(L):
-        st = _slstm_cell(params, {g: gx[g][:, t] for g in GATES}, st, H, dh)
-        hs.append(st[0])
-    return torch.stack(hs, dim=1).reshape(B, L, d), st, hin
+          torch.full((B, H, dh), -1e30, dtype=torch.float32,
+                     device=gx["i"].device))
+
+    def step(t, st):
+        st = _slstm_cell(r, {g: gx[g][:, t] for g in GATES}, st, H, dh)
+        return st[0], st
+
+    hs, st = ops.token_loop(step, L, st, (r, gx))
+    return hs.reshape(B, L, H * dh), st
+
+
+def _slstm_loop_sharded(r: dict, gx: dict, H: int, dh: int):
+    """``_slstm_loop`` on one rank: its rows, and its heads when the heads
+    divide the model axis (the recurrence mixes within a head only, so a
+    head is never split); the state leaves split alike."""
+    B, L, d = gx["i"].shape
+    split = shr.spec_for(shr.current_mesh(), ("heads", None, None),
+                         (H, dh, dh))[0] is not None
+    hax = "heads" if split else None
+    g_ax, r_ax, s_ax = ("batch", None, hax), (hax, None, None), (
+        "batch", hax, None)
+
+    def local(*xs):
+        rl = {f"r_{g}": x for g, x in zip(GATES, xs[:4])}
+        gl = dict(zip(GATES, xs[4:]))
+        hs, st = _slstm_loop(rl, gl, xs[0].shape[0], dh)
+        return (hs, *st)
+
+    outs = shr.local_region(
+        local, [*(r[f"r_{g}"] for g in GATES), *(gx[g] for g in GATES)],
+        [r_ax] * 4 + [g_ax] * 4,
+        [(g_ax, (B, L, d))] + [(s_ax, (B, H, dh))] * 4)
+    return outs[0], tuple(outs[1:])
 
 
 def slstm_forward(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

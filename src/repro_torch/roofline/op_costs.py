@@ -20,8 +20,24 @@ charges each one under ``hlo_costs``' conventions:
             when out of place): slice size, never the whole operand
 
 Python loops run in full, so there are no loop trips to scale: every count
-is the step's own, and ``while_trips`` stays empty. One card has no
-collectives: the ``coll_*`` fields are 0.
+is the step's own, and ``while_trips`` stays empty — save one: a token
+recurrence (``kernels.ops.token_loop``, the sLSTM's in ``models/xlstm.py``)
+is charged one token step times its trip count, as ``hlo_costs`` scales a
+while body (``token_loop``, ``scaled_step``).
+
+**One rank's share** (a sharded step, ``launch.dryrun``'s ``single`` and
+``multipod`` meshes): the step runs on DTensors whose local shards are
+``meta``. An op on DTensors is handed back to DTensor (``NotImplemented``),
+which runs the rank's local op — charged here as any op — and the
+collectives its redistributions need, each recorded by
+``roofline.collectives.record_collective`` (count, operand and wire bytes,
+and ``2 x result`` bytes, as ``hlo_costs`` charges one). DTensor's sharding
+propagation also runs each op once on fake tensors of the GLOBAL shapes to
+learn the output's shape; those runs are not the rank's program and are
+neither charged nor held live. On a CPU mesh DTensor swaps an all-to-all
+for an all-gather and a local chunk (gloo has no all-to-all): the swap is
+recorded as the one all-to-all it stands for. One card has no collectives:
+the ``coll_*`` fields are 0.
 
 ``bytes`` is the eager upper bound: every op's result and operands, the
 hand-written kernels' plain bodies included. ``bytes_major`` charges each
@@ -55,17 +71,21 @@ Use::
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import types
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import _autograd, ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import _plain as _flash_plain
+from repro_torch.roofline import collectives as coll
 
 # ops that move no data and do no arithmetic (views are found by schema)
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty", "_unsafe_view",
@@ -120,7 +140,9 @@ def leaf_tensors(*trees):
     """The tensors of nested dicts, lists and tuples (a ``TransformerLM`` by
     its tree)."""
     for tree in trees:
-        if isinstance(tree, torch.Tensor):
+        if isinstance(tree, DTensor):
+            yield tree.to_local()
+        elif isinstance(tree, torch.Tensor):
             yield tree
         elif isinstance(tree, dict):
             yield from leaf_tensors(*tree.values())
@@ -134,6 +156,15 @@ def storages(*trees) -> dict[int, int]:
     """{storage id: bytes} of the distinct storages under ``trees``."""
     return {id(s): s.nbytes() for s in
             (t.untyped_storage() for t in leaf_tensors(*trees))}
+
+
+def _sharding_propagation(out) -> bool:
+    """Whether an op ran inside DTensor's sharding propagation (on fake
+    tensors of the global shapes, to learn the output's shape): its result
+    is fake."""
+    if isinstance(out, (tuple, list)) and out:
+        out = out[0]
+    return isinstance(out, FakeTensor)
 
 
 def _matmul_flops(name: str, args, out: torch.Tensor) -> float:
@@ -173,6 +204,11 @@ class OpCosts(TorchDispatchMode):
         self.peak_bytes = 0
         self._in_kernel = 0
         self._prev_costs = None
+        self.collectives: list[coll.Collective] = []
+        self._in_alltoall = 0
+        self._scale = 1             # the trip count of a scaled loop body
+        self.while_trips: list[int] = []
+        self._patched = None
 
     @property
     def plain_backwards(self) -> dict:
@@ -202,16 +238,132 @@ class OpCosts(TorchDispatchMode):
     # -------------------------------------------------------- dispatching ----
     def __enter__(self):
         self._prev_costs, ops._costs = ops._costs, self
+        self._patch_alltoall()
         return super().__enter__()
 
     def __exit__(self, *exc):
         ops._costs = self._prev_costs
+        if self._patched is not None:
+            mod, fn = self._patched
+            mod.shard_dim_alltoall = fn
+            self._patched = None
         return super().__exit__(*exc)
+
+    def _patch_alltoall(self) -> None:
+        """Record DTensor's shard-to-shard all-to-all as one ``all-to-all``
+        of its result, whatever it runs as (on a CPU mesh an all-gather and
+        a chunk)."""
+        from torch.distributed.tensor import placement_types as pt
+
+        fn = getattr(pt, "shard_dim_alltoall", None)
+        if fn is None:
+            return
+
+        def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+            self._in_alltoall += 1
+            try:
+                out = fn(input, gather_dim, shard_dim, mesh, mesh_dim)
+            finally:
+                self._in_alltoall -= 1
+            if self._in_alltoall == 0:
+                self._collective(coll.Collective(
+                    "all-to-all", _nbytes(out), mesh.size(mesh_dim)), out)
+            return out
+
+        self._patched = (pt, fn)
+        pt.shard_dim_alltoall = alltoall
+
+    @contextlib.contextmanager
+    def _scaled_loop(self, trips: int):
+        """Charge what runs inside ``trips`` times: one step of a loop
+        standing for all of its steps, as ``hlo_costs`` multiplies a while
+        body by its trip count (recorded in ``while_trips``)."""
+        prev = self._scale
+        self._scale = prev * int(trips)
+        self.while_trips.append(int(trips))
+        try:
+            yield
+        finally:
+            self._scale = prev
+
+    @contextlib.contextmanager
+    def held(self, t: torch.Tensor, n: int):
+        """Hold ``n`` more storages of ``t``'s size live while the block
+        runs: the tensors a full loop would keep that one scaled step
+        stands for."""
+        extra = n * t.untyped_storage().nbytes() * self._scale
+        self.live_bytes += extra
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        try:
+            yield
+        finally:
+            self.live_bytes -= extra
+
+    def scaled_step(self, trips: int, step, inputs, *args):
+        """``step(*args)`` as one step standing for ``trips``: its ops are
+        charged ``trips`` times; under autograd so is its backward (each
+        backward node of the step runs at the same scale), and the tensors
+        the step keeps for it are held ``trips`` times over until the
+        backward reaches the step. ``inputs`` are the tensors from outside
+        the step that it reads (where its graph stops)."""
+        before = self.live_bytes
+        with self._scaled_loop(trips):
+            out = step(*args)
+        outs = [t for t in leaf_tensors(out) if t.grad_fn is not None]
+        if not outs:
+            return out
+        extra = (self.live_bytes - before) * (trips - 1)
+        self.live_bytes += extra
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        outside = {t.grad_fn for t in leaf_tensors(inputs)} | {None}
+        nodes, todo = set(), [t.grad_fn for t in outs]
+        while todo:
+            n = todo.pop()
+            if n in outside or n in nodes or type(n).__name__ == \
+                    "AccumulateGrad":
+                continue
+            nodes.add(n)
+            todo.extend(f for f, _ in n.next_functions)
+        prev = []
+        held = [extra]
+
+        def pre(grad_outputs):
+            if held[0]:
+                self.live_bytes -= held[0]
+                held[0] = 0
+            prev.append(self._scale)
+            self._scale = prev[-1] * int(trips)
+
+        def post(grad_inputs, grad_outputs):
+            self._scale = prev.pop()
+
+        for n in nodes:
+            n.register_prehook(pre)
+            n.register_hook(post)
+        return out
+
+    def _collective(self, c: coll.Collective, out) -> None:
+        """Charge one collective: recorded, and its result's bytes read and
+        written (``hlo_costs``' ``2 x result``)."""
+        self.collectives.extend([c] * self._scale)
+        self.bytes += 2 * c.result_bytes * self._scale
+        self.bytes_major += 2 * c.result_bytes * self._scale
+        for t in leaf_tensors(out):
+            self._register(t)
 
     def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types_):
+            return NotImplemented       # DTensor runs the rank's local ops
         out = func(*args, **kwargs)
+        if self._in_alltoall or _sharding_propagation(out):
+            return out
         name = func.overloadpacket.__name__
+        if func.namespace in coll.NAMESPACES:
+            c = coll.record_collective(func, args, out)
+            if c is not None:
+                self._collective(c, out)
+            return out
         if func.is_view or name in _FREE:
             return out
         outs = list(leaf_tensors(out))
@@ -226,19 +378,20 @@ class OpCosts(TorchDispatchMode):
             b = out_bytes + sum(_nbytes(t) for t in leaf_tensors(args[1:]))
         else:
             b = out_bytes + sum(_nbytes(t) for t in leaf_tensors(args, kwargs))
-        self.bytes += b
+        k = self._scale
+        self.bytes += b * k
         if self._in_kernel:
             return out          # charged as the kernel, in _kernel_call
-        self.bytes_major += b
+        self.bytes_major += b * k
         elems = sum(t.numel() for t in outs)
         if name in _MATMUL:
             f = _matmul_flops(name, args, outs[0])
-            self.flops += f
-            self.matmul_flops += f
+            self.flops += f * k
+            self.matmul_flops += f * k
         else:
-            self.flops += elems
+            self.flops += elems * k
             if name in _TRANSCENDENTAL:
-                self.transcendentals += elems
+                self.transcendentals += elems * k
         for t in outs:
             self._register(t)
         return out
@@ -250,7 +403,7 @@ class OpCosts(TorchDispatchMode):
         charged but its eager bytes; the kernel's bytes, operations and
         output are charged instead. Under autograd through ``KernelFn``,
         as on the card."""
-        self.kernel_calls[name] += 1
+        self.kernel_calls[name] += self._scale
 
         def kernel(*xs):
             self._in_kernel += 1
@@ -258,9 +411,11 @@ class OpCosts(TorchDispatchMode):
                 out = plain(*xs)
             finally:
                 self._in_kernel -= 1
-            self.bytes_major += sum(_nbytes(t) for t in xs) + _nbytes(out)
-            self.flops += n_ops
-            self.transcendentals += n_transcendental
+            k = self._scale
+            self.bytes_major += (sum(_nbytes(t) for t in xs)
+                                 + _nbytes(out)) * k
+            self.flops += n_ops * k
+            self.transcendentals += n_transcendental * k
             self._register(out)
             return out
 
@@ -289,9 +444,26 @@ class OpCosts(TorchDispatchMode):
         return self._kernel_call("flash_attention", plain, (q, k, v),
                                  4 * rows * pairs * d, rows * pairs)
 
+    def token_loop(self, step, trips: int, state: tuple, inputs):
+        """``kernels.ops.token_loop`` under the count: one step run and
+        charged ``trips`` times (``scaled_step``), and its output held
+        ``trips - 1`` times more while they are stacked, as the full loop
+        keeps every step's."""
+        y, state = self.scaled_step(trips, step, (inputs, state), 0, state)
+        with self.held(y, trips - 1):
+            ys = torch.stack([y] * trips, dim=1)
+        return ys, state
+
     def rollup(self) -> ModuleCosts:
+        """The totals; ``coll_by_op`` is ``hlo_costs``' {op: [count, wire
+        bytes]}."""
+        summ = coll.summarize(self.collectives)
         return ModuleCosts(flops=self.flops,
                            transcendentals=self.transcendentals,
                            bytes=self.bytes, bytes_major=self.bytes_major,
-                           coll_wire=0.0, coll_operand=0.0, coll_count=0.0,
-                           coll_by_op={}, while_trips=[])
+                           coll_wire=float(summ["wire_bytes"]),
+                           coll_operand=float(summ["operand_bytes"]),
+                           coll_count=float(summ["count"]),
+                           coll_by_op={op: [e["count"], e["wire_bytes"]]
+                                       for op, e in summ["by_op"].items()},
+                           while_trips=list(self.while_trips))

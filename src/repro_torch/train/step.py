@@ -21,6 +21,7 @@ naming it.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models import api
 from repro_torch.models.common import (ModelConfig, torch_dtype, tree_leaves,
@@ -80,10 +81,15 @@ def trainable_state(cfg: ModelConfig, state: dict) -> dict:
 
 
 def _split_micro(batch: dict, n: int) -> dict:
-    """(B, ...) -> (n, B/n, ...) for every present batch leaf."""
+    """(B, ...) -> (n, B/n, ...) for every present batch leaf. A DTensor
+    leaf split over its batch is gathered whole first (a microbatch spans
+    a few ranks' rows; the model's first annotation splits each again)."""
     def sp(x):
         B = x.shape[0]
         assert B % n == 0, (B, n)
+        if isinstance(x, DTensor) and n > 1:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p.is_shard(0) else p for p in x.placements])
         return x.reshape(n, B // n, *x.shape[1:])
     return {k: sp(v) for k, v in batch.items() if k in BATCH_KEYS}
 
@@ -115,7 +121,9 @@ def _mean_grads(cfg: ModelConfig, params, batch: dict, n_micro: int,
         return loss, _as_tree(grads)
     micro = _split_micro(batch, n_micro)
     leaves = tree_leaves(as_tree(params))
-    acc = {path: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+    acc = {path: torch.zeros_like(p, dtype=accum_dtype)
+           if isinstance(p, DTensor) else
+           torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
            for path, p in leaves}
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0][1].device)
     for i in range(n_micro):

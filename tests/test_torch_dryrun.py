@@ -106,16 +106,30 @@ def test_input_specs_equal_the_reference_and_allocate_nothing(arch, shape):
     assert tensors and all(v.device.type == "meta" for v in tensors)
 
 
-def test_sharding_names_refuse_naming_the_multi_card_row():
-    for call in (lambda: tinputs.rules_for_shape(tconfigs.SHAPES["train_4k"]),
-                 lambda: tinputs.shardings_for(None, {}, {}, {}),
-                 lambda: tinputs.batch_shardings_for(None, {}, {}),
-                 lambda: dryrun.analyze_cell("smollm-135m", "train_4k",
-                                             "multipod"),
-                 lambda: dryrun.main(["--arch", "smollm-135m", "--shape",
-                                      "train_4k", "--multi-pod"])):
-        with pytest.raises(NotImplementedError, match="multi-card row"):
-            call()
+def test_sharding_names_work_on_the_production_meshes(tmp_path):
+    """``rules_for_shape``, ``shardings_for`` and ``batch_shardings_for``
+    give a cell's rules and placements, and the dry-run counts it on the
+    multi-pod mesh (the CLI's ``--multi-pod``)."""
+    from repro_torch.launch import mesh as lmesh
+    rules = tinputs.rules_for_shape(tconfigs.SHAPES["decode_32k"])
+    assert rules["kv_len"] == "model"
+    spec = tinputs.input_specs("smollm-135m", "decode_32k")
+    with lmesh.fake_process_group():
+        mesh = lmesh.make_production_mesh(multi_pod=True)
+        sh = tinputs.shardings_for(mesh, spec["cache"], spec["cache_axes"],
+                                   rules)
+        k = sh["stage_0"]["k"]
+        assert tuple(k.spec) == (None, ("pod", "data"), "model", None, None)
+        assert len(k.placements) == 3
+        b = tinputs.batch_shardings_for(mesh, {"tokens": spec["tokens"]},
+                                        rules)
+        assert tuple(b["tokens"].spec) == (("pod", "data"), None)
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
+                     "--multi-pod", "--out", str(tmp_path)])
+    assert done.value.code == 0
+    with open(tmp_path / "smollm-135m__decode_32k__multipod.json") as f:
+        assert json.load(f)["chips"] == 512
 
 
 # --------------------------------------------------- counts against JAX ----
@@ -222,27 +236,33 @@ def test_analyze_cell_counts_a_reduced_twin_of_every_family(family, shape,
             or family == "encdec"
 
 
-def test_xlstm_cells_over_the_token_loop_limit_are_error_cells(tmp_path):
+def test_xlstm_cells_are_counted_by_a_scaled_token_step(tmp_path):
+    """The xLSTM cells whose sLSTM token loop is too long to run on
+    ``meta`` count: one token step charged as every one
+    (``while_trips``)."""
+    ov = {"n_layers": 8, "d_model": 128}
     results = dryrun.run_cells([("xlstm-1.3b", "train_4k", "card"),
                                 ("xlstm-1.3b", "prefill_32k", "card")],
-                               str(tmp_path))
-    assert [r["error"].split(":")[0] for r in results] == ["not counted"] * 2
-    assert "73,728 Python steps" in results[0]["error"]
-    assert "196,608 Python steps" in results[1]["error"]
+                               str(tmp_path), cfg_overrides=ov,
+                               shape_overrides={"seq_len": 128,
+                                                "global_batch": 2})
+    assert all("error" not in r for r in results), results
+    assert [r["cost"]["while_trips"] for r in results] == [[128, 128], [128]]
     assert len(list(tmp_path.iterdir())) == 2
 
 
 def test_the_cli_writes_the_reference_cells_keys_and_the_table_renders(
         tmp_path):
     """``python -m repro_torch.launch.dryrun --arch smollm-135m --shape
-    train_4k`` writes the cell with the JAX cell's keys (``fits_hbm`` for
-    ``fits_16GiB``), and ``roofline_table`` renders it."""
+    train_4k --card`` writes the cell with the JAX cell's keys
+    (``fits_hbm`` for ``fits_16GiB``), and ``roofline_table`` renders it."""
     from benchmarks_torch import roofline_table
     from repro.roofline import terms as jterms
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "smollm-135m", "--shape", "train_4k", "--out", str(tmp_path)],
+         "smollm-135m", "--shape", "train_4k", "--card", "--out",
+         str(tmp_path)],
         capture_output=True, text=True, env=env, timeout=600, cwd=REPO)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "1/1 cells OK" in out.stdout

@@ -64,7 +64,8 @@ def test_port_files_are_found():
             "_autograd.py", "adamw.py", "pipeline.py", "step.py", "loop.py",
             "train.py", "train_lm.py", "shapes.py", "hw.py", "terms.py",
             "op_costs.py", "inputs.py", "dryrun.py",
-            "roofline_table.py", "mesh.py", "rules.py"} <= names
+            "roofline_table.py", "mesh.py", "rules.py", "collectives.py",
+            "render_experiments.py"} <= names
     assert {p.name for p in EXAMPLE_FILES} == {
         "quickstart.py", "root_parallel_demo.py", "serve_games.py",
         "selfplay.py", "chaos_serving.py", "trace_serving.py",
@@ -153,7 +154,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.roofline.terms, repro_torch.roofline.op_costs, "
             "repro_torch.launch.inputs, repro_torch.launch.dryrun, "
             "benchmarks_torch.roofline_table, repro_torch.launch.mesh, "
-            "repro_torch.sharding.rules; "
+            "repro_torch.sharding.rules, repro_torch.roofline.collectives, "
+            "benchmarks_torch.render_experiments; "
             "from repro_torch.kernels import _build; "
             "assert _build._lib is None; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -159,11 +159,16 @@ def test_table2_fig9_and_root_parallel_run_on_the_cpu():
         "best_move_sum"]
 
 
-@pytest.mark.parametrize("job,item", [("render_experiments",
-                                      "multi-card row")])
-def test_run_refuses_the_jobs_of_other_items(job, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run.main(["--only", f"fig5,{job}", "--device", "cpu"])
+def test_run_renders_the_experiments(tmp_path, monkeypatch):
+    """``--only render_experiments`` renders the committed sharded sweep's
+    summary, table and notes."""
+    from benchmarks_torch import common
+    monkeypatch.setattr(common, "ART_DIR", str(tmp_path))
+    res = run.main(["--only", "render_experiments", "--device", "cpu"])
+    assert set(res) == {"render_experiments"}
+    r = res["render_experiments"]
+    assert r["n_ok"] >= 64 and "fit 80 GB a chip" in r["dryrun_summary"]
+    assert [p.name for p in tmp_path.iterdir()] == ["render_experiments.json"]
 
 
 @pytest.mark.parametrize("job", ["serve_games", "serve_chaos", "selfplay",

@@ -118,16 +118,36 @@ def test_named_shardings_carry_the_specs():
     assert out["scalar"] == 3
 
 
-def test_shard_is_a_no_op_outside_a_mesh_and_refuses_inside_an_lm_mesh():
+def test_shard_is_a_no_op_outside_a_mesh():
     x = torch.zeros(8, 16)
     assert trules.shard(x, ("batch", "embed")) is x
     ens, _ = meshes("ensemble")
     with trules.use_rules(trules.DEFAULT_RULES, ens):
         assert trules.shard(x, ("batch", "embed")) is x
-    port, _ = meshes("single_pod")
+
+
+def test_shard_places_a_dtensor_by_its_spec_inside_an_lm_mesh():
+    """Inside a ``DeviceMesh`` (a fake process group of 8 ranks) ``shard``
+    redistributes to the divisible spec the reference would constrain to;
+    a device-list ``Mesh`` with LM axes is not an LM mesh."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard
+    port, ref = meshes("single_pod")
+    x = torch.zeros(8, 16)
     with trules.use_rules(trules.DEFAULT_RULES, port):
-        with pytest.raises(NotImplementedError, match="A14b"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             trules.shard(x, ("batch", "embed"))
+    with tmesh.fake_process_group(8):
+        dm = DeviceMesh("cpu", torch.arange(8).reshape(4, 2),
+                        mesh_dim_names=("data", "model"))
+        with trules.use_rules(trules.DEFAULT_RULES, dm):
+            d = trules.distribute_to(dm, x, (None, None))
+            y = trules.shard(d, ("batch", "embed"))
+            want = jrules._divisible_spec(jrules.logical_to_spec(
+                ("batch", "embed"), None, ref), (8, 16), ref)
+            assert as_tuple(want) == ("data", None)
+            assert tuple(y.placements) == (Shard(0), Replicate())
+            assert torch.equal(y.full_tensor(), x)
 
 
 # ------------------------------------------------------------------ meshes ----
@@ -165,7 +185,16 @@ def test_ensemble_mesh_keeps_repeats_and_refuses_missing_cards():
         tmesh.make_mesh((2, 2), ("data", "model"), ["cpu"] * 3)
 
 
-def test_production_mesh_refuses_naming_a14b():
-    for multi_pod in (False, True):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            tmesh.make_production_mesh(multi_pod=multi_pod)
+def test_production_mesh_builds_the_references_meshes():
+    """The (16, 16) and (2, 16, 16) meshes over the first 256 or 512 ranks
+    of a 512-rank fake group, with the reference's axis names; refused
+    (as the reference refuses) with too few ranks."""
+    with pytest.raises(RuntimeError, match="needs 256 ranks, found 0"):
+        tmesh.make_production_mesh()
+    with tmesh.fake_process_group():
+        for multi_pod, dims in ((False, {"data": 16, "model": 16}),
+                                (True, {"pod": 2, "data": 16, "model": 16})):
+            mesh = tmesh.make_production_mesh(multi_pod=multi_pod)
+            assert tmesh.mesh_dims(mesh) == dims
+            assert mesh.mesh.flatten().tolist() == list(
+                range(256 * (1 + multi_pod)))
