@@ -31,22 +31,22 @@ the port's paths:
   cost, no kernel build inside a span);
 - the root-parallel forest (``repro_torch.core.root_parallel.
   gscpm_search_batch``): 8 trees of 32 lanes on 11x11 Hex, three self-play
-  moves (32,768 playouts a member, then ``reroot_forest`` at the visit-sum
+  moves (16,384 playouts a member, then ``reroot_forest`` at the visit-sum
   move and two warm moves of 8,192), checking that each sync iteration
   launches ``select_descent`` once per selection round and ``hex_playout``
   once for all members, the re-root retention contract on every member
-  after every move, and at 8,192 playouts a member that each member equals
+  after every move, and at 4,096 playouts a member that each member equals
   ``gscpm_search`` with its member key, that kernels equal the plain
   versions and that the forest run twice is bit-identical;
 - the same forest sharded over an ensemble mesh (``hex_forest_sharded``,
-  16,384 playouts a member, root sync every 4 rounds): on one device, then
+  8,192 playouts a member, root sync every 4 rounds): on one device, then
   on 2 and 3 virtual shards of the card (3 pads one member) and on every
   card when the host has several, each sharded run equal to the one-device
   run in every forest field and in its merged answers, ``select_descent``
   and ``hex_playout`` launched once a shard a sync iteration; a warm move
   after ``reroot_forest`` on 2 shards, the rates in turns (2,048 playouts a
   member), metrics on at that budget on 2 shards, and a forest tenant of
-  4 x 8,192 served over 2 shards equal to the batch search;
+  4 x 4,096 served over 2 shards equal to the batch search;
 - Gomoku on the 15x15 board: a 65,536-playout search on 256 lanes, then
   ``reroot_tree`` and a warm second move, its descent through
   ``select_descent`` (225 children a node), kernels against plain versions,
@@ -54,7 +54,7 @@ the port's paths:
 - serving board-game search (``repro_torch.serve.games``, ``serve_games``):
   the TPFIFO engine with 2 slots a game class, quanta of 2 rounds and
   preemption after 2 quanta, 256 lanes, serving 16 requests alternating
-  Hex 11x11 and Gomoku 15x15 (16,384 to 65,536 playouts each) and a Hex
+  Hex 11x11 and Gomoku 15x15 (8,192 to 32,768 playouts each) and a Hex
   forest tenant of 4 trees; a preempted request of each class equals its
   direct ``gscpm_search``, the forest tenant ``gscpm_search_batch``, the
   first 6 served again blocking, pipelined and one request a slot run to
@@ -64,7 +64,7 @@ the port's paths:
   ones; one engine tick profiled (CUDA activity);
 - GSCPM-guided decoding on SmolLM-135M at its published width (random
   weights from seed 0): ``repro_torch.serve.mcts_decode.mcts_generate`` of 2
-  tokens after a 128-token prompt, 256 playouts a token on 64 lanes, run twice
+  tokens after a 128-token prompt, 128 playouts a token on 64 lanes, run twice
   with bit-identical tokens and trees, then once more, and one
   search stepped side by side, with the kernels' plain versions;
 - LM serving on the same model: B = 4 token trees searched as one forest
@@ -94,15 +94,15 @@ the port's paths:
   each prefills 4 requests of 256 seeded patches or frames and 64 tokens,
   then takes 16 greedy steps (twice, the same tokens), its logits held
   against the plain versions; seamless also one search-guided token
-  (``mcts_decode_search``, 64 lanes, 256 playouts) and one batched token
+  (``mcts_decode_search``, 64 lanes, 128 playouts) and one batched token
   for the 4 requests (``mcts_decode_search_batch``), each run twice
   bit-identical and, on float32 weights, equal to its run with the plain
   versions; paligemma's search with patches is refused (its prefix does
   not fit the search's cache, as in the reference) before any kernel;
 - training at smollm-135m's full width (``lm_train``, bf16, flash on,
-  seed-0 weights): ``repro_torch.train.loop.train`` for 100 AdamW steps of
+  seed-0 weights): ``repro_torch.train.loop.train`` for 40 AdamW steps of
   8 x 256 synthetic tokens in 2 microbatches, an async checkpoint at step
-  50 restored bit for bit and resumed for 10 steps (the straight run's
+  20 restored bit for bit and resumed for 10 steps (the straight run's
   losses), the loss falling by at least a nat, every norm and attention
   launched as its kernel under autograd (122 and 60 a step, each with one
   backward through its plain version, no plain forward), and gradients
@@ -131,7 +131,19 @@ the port's paths:
   the count calls it, no step may beat the rank's compute term or one pass
   over its arguments and outputs, and the count's peak must lie within
   0.5-2x of the card's. Values are not checked: a fake collective's output
-  is uninitialized memory.
+  is uninitialized memory;
+- training on a mesh (``lm_sharded_train``): ``train.loop.train(mesh=)`` on
+  a real process group of this process alone (nccl), a (1, 1) mesh on the
+  card, the reduced smollm-135m twin for 5 steps with the unsharded loop's
+  losses, one step with the kernels against the plain versions, and the
+  int8 gradient quantization bit for bit the CPU's; then rank 0 of a fake
+  group of 256 on the (16, 16) mesh runs its share of llama3-8b x train_4k
+  at full width (32 layers, bf16 params, float32 moments, 4 microbatches
+  of 64 x 4,096 tokens, flash off), counted by the sharded dry-run first,
+  1 warm, 2 timed and a profiled step through ``jit_train_step``; rmsnorm
+  must launch (and take its plain backward) as often as the count says, no
+  step may beat the rank's compute term or one pass over its arguments,
+  and the count's peak must lie within 0.5-2x of the card's.
 
 ``lm_kernels`` also holds and times flash attention, rmsnorm and the
 one-tile ``uct_select`` at LM serving's shapes (``new_shapes``), the
@@ -196,36 +208,40 @@ MAX_KERNELS_PER_ITERATION = 800
 PAPER_SWEEP_TASKS = (64, 256, 1024, 4096)
 TRACE_FIT_TASKS = (256, 1024, 4096)
 # the counters against the plain versions: a budget where the plain
-# descent's level loop (a host read a level) is affordable
-METRICS_CHECK_PLAYOUTS = 8192
+# descent's level loop (a host read a level) is affordable (8,192 until
+# lm_sharded_train needed the time)
+METRICS_CHECK_PLAYOUTS = 4096
 
 # the root-parallel forest path: 8 trees of 32 lanes (256 lanes a launch,
 # the single tree's width), 128 tasks a member (grain 512 on the first
-# move), 32,768 playouts a member (a quarter of the paper's budget over
+# move), 16,384 playouts a member (an eighth of the paper's budget over
 # the ensemble, to keep the script inside its time limit: 65,536 until the
-# lm_sharded phase needed the time); then the visit-sum move is played,
+# lm_sharded phase needed the time, 32,768 until lm_sharded_train did);
+# then the visit-sum move is played,
 # the forest re-rooted, and two warm moves searched at 8,192 playouts a
 # member (16,384 until then)
 FOREST = dict(board_size=11, n_workers=32, n_tasks=128, tree_cap=1 << 18,
               scheduler="fifo", cp=1.0, vl_rounds=1)
 FOREST_TREES = 8
-FOREST_PLAYOUTS = (32_768, 8_192, 8_192)
-# the forest's checks: 4 members at 8,192 playouts each
-FOREST_CHECK = dict(n_trees=4, n_playouts=8192)
+FOREST_PLAYOUTS = (16_384, 8_192, 8_192)
+# the forest's checks: 4 members at 4,096 playouts each (8,192 until
+# lm_sharded_train needed the time)
+FOREST_CHECK = dict(n_trees=4, n_playouts=4096)
 # the forest sharded over an ensemble mesh (hex_forest_sharded): the same
-# FOREST at 16,384 playouts a member, root sync every 4 rounds, on one
+# FOREST at 8,192 playouts a member (16,384 until lm_sharded_train needed
+# the time), root sync every 4 rounds, on one
 # device, then on 2 and 3 virtual shards of the card (8 members on 3 shards
 # pad one) and on every card when there are several; a warm move (2,048
 # playouts a member after reroot_forest) on 2 shards; the rates in turns at
 # 2,048 playouts a member, then metrics on at that budget on 2 shards; a
-# served forest tenant of 4 x 8,192 (the serving engine's lanes) over 2
-# shards
-SHARDED_PLAYOUTS = 16_384
+# served forest tenant of 4 x 4,096 (the serving engine's lanes and grain;
+# 8,192 at grain 16 until then) over 2 shards
+SHARDED_PLAYOUTS = 8_192
 SHARDED_MERGE_EVERY = 4
 SHARDED_VIRTUAL = (2, 3)
 SHARDED_WARM_PLAYOUTS = 2048
 SHARDED_TURN_PLAYOUTS = 2048
-SHARDED_SERVE = dict(n_trees=4, n_playouts=8192, shards=2)
+SHARDED_SERVE = dict(n_trees=4, n_playouts=4096, shards=2)
 # Gomoku: free-style, the standard 15x15 board, one tree of 256 lanes,
 # 65,536 playouts in 256 tasks, then a re-rooted warm second move
 GOMOKU = dict(game="gomoku", board_size=15, n_workers=256, n_tasks=256,
@@ -236,40 +252,43 @@ GOMOKU_CHECK_PLAYOUTS = 8192
 # serving board-game search (repro_torch.serve.games): the TPFIFO engine
 # with 2 slots a game class, quanta of 2 schedule rounds, preemption after
 # 2 quanta, 256 lanes; 16 requests alternating Hex 11x11 and Gomoku 15x15,
-# each of 16,384, 32,768 or 65,536 playouts (drawn from seed 0) in tasks of
-# grain 16 (4 to 16 rounds), then one Hex forest tenant of 4 trees
+# each of 8,192, 16,384 or 32,768 playouts (drawn from seed 0) in tasks of
+# grain 8 (4 to 16 rounds), then one Hex forest tenant of 4 trees; every
+# serving budget and the grain are half what they were until the
+# lm_sharded_train phase needed the time (the same rounds, quanta and
+# preemptions, half the iterations a round)
 SERVE_ENGINE = dict(n_slots=2, grain=2, preempt_quanta=2, n_workers=256,
                     tree_cap=1 << 17)
 SERVE_GAMES = (("hex", 11), ("gomoku", 15))
 SERVE_REQUESTS = 16
-SERVE_PLAYOUTS = (16_384, 32_768, 65_536)
-SERVE_GRAIN = 16
-SERVE_FOREST = dict(n_trees=4, n_playouts=8192)
+SERVE_PLAYOUTS = (8_192, 16_384, 32_768)
+SERVE_GRAIN = 8
+SERVE_FOREST = dict(n_trees=4, n_playouts=4096)
 SERVE_BLOCKING = 6          # the first 6 served again, pipelining off
-# two sessions following one game of Hex 11x11 at 32,768 playouts a move;
+# two sessions following one game of Hex 11x11 at 16,384 playouts a move;
 # which session answers each move (session 2 answers moves 1 and 2, so its
 # warm search at move 2 starts from its own answer's subtree)
 SESSION_MOVES = 4
 SESSION_ANSWERS = (1, 2, 2, 1)
-SESSION_PLAYOUTS = 32_768
-# chaos: the seeded fault plan over 8 requests of 4,096 and 8,192 playouts
+SESSION_PLAYOUTS = 16_384
+# chaos: the seeded fault plan over 8 requests of 2,048 and 4,096 playouts
 # at a small tree capacity (a snapshot a quantum stays cheap)
 CHAOS_PLAN = dict(seed=0, n_ticks=4096, n_slots=4, rate=0.05)
 CHAOS_REQUESTS = 8
-CHAOS_PLAYOUTS = (4096, 8192)
+CHAOS_PLAYOUTS = (2048, 4096)
 CHAOS_TREE_CAP = 1 << 14
 # the profiled tick: a Hex and a Gomoku request of 4 rounds, past their
 # first quantum
-TICK_PLAYOUTS = 16_384
+TICK_PLAYOUTS = 8_192
 
 # the LM path: SmolLM-135M at full width, one request, a 128-token prompt,
 # 2 generated tokens (the second search starts from the committed first),
-# each from a GSCPM search of 256 playouts on 64 lanes (1,024 until the
-# training phase needed the time, 512 until the lm_sharded phase did:
-# PERF.md §4)
+# each from a GSCPM search of 128 playouts on 64 lanes (1,024 until the
+# training phase needed the time, 512 until the lm_sharded phase did, 256
+# until lm_sharded_train did: PERF.md §4)
 LM_PROMPT_LEN = 128
 LM_TOKENS = 2
-LM_PLAYOUTS = 256
+LM_PLAYOUTS = 128
 LM_SEARCH = dict(n_workers=64, n_tasks=64, branch=8, max_depth=6,
                  rollout_len=8, tree_cap=4096)
 LM_PREFILL_SHAPE = (64, 9, 3, LM_PROMPT_LEN, 64)   # B, H, Hkv, S, d
@@ -356,7 +375,7 @@ VE_ROWS = 4
 VE_SRC_LEN = 256
 VE_PROMPT_LEN = 64
 VE_DECODE_STEPS = 16
-VE_SEARCH_PLAYOUTS = 256
+VE_SEARCH_PLAYOUTS = 128      # 256 until lm_sharded_train needed the time
 # the two models' rmsnorm widths (D, which norm, the path's row counts):
 # paligemma's 4 decode rows and its 4 x 320-position prefill; seamless's 4
 # decode rows, its 4 x 64-token decoder prefill (also the batched search's
@@ -410,16 +429,18 @@ RMSNORM_F32_TOL = 1e-5
 RMSNORM_BF16_SHARE = 1e-3
 RMSNORM_BF16_STEPS = {"kernel": 1, "model": 2}
 # lm_train: smollm-135m at full width (bf16, seed-0 weights, flash on),
-# the synthetic pipeline's Zipf tokens, 100 AdamW steps of 8 x 256 tokens in
-# 2 microbatches, an async checkpoint at step 50, a resume from it for 10
+# the synthetic pipeline's Zipf tokens, 40 AdamW steps of 8 x 256 tokens in
+# 2 microbatches (100 until lm_sharded_train needed the time; the schedule
+# still runs to step 100), an async checkpoint at step 20, a resume from it
+# for 10
 # steps; the loss must fall by LM_TRAIN_DROP nats (first step to the mean
 # of the last 10), the resumed steps after the first within
 # LM_TRAIN_RESUME_RTOL (the embedding's backward adds by atomics)
 LM_TRAIN_DATA = dict(seq_len=256, global_batch=8)
 LM_TRAIN_MICRO = 2
-LM_TRAIN_STEPS = 100
+LM_TRAIN_STEPS = 40
 LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=100)
-LM_TRAIN_CKPT = 50
+LM_TRAIN_CKPT = 20
 LM_TRAIN_RESUME_STEPS = 10
 LM_TRAIN_DROP = 1.0
 LM_TRAIN_RESUME_RTOL = 1e-3
@@ -460,6 +481,23 @@ LM_SHARDED_CELLS = ("llama3-8b", "qwen3-moe-235b-a22b")
 LM_SHARDED_SHAPE = "decode_32k"
 LM_SHARDED_STEPS = 3
 LM_SHARDED_PEAK_RATIO = (0.5, 2.0)
+# lm_sharded_train, part (a): train(mesh=) on a real group of one nccl rank,
+# a (1, 1) mesh on the card, the reduced smollm-135m twin (float32, flash
+# off) for 5 steps against the unsharded loop (rtol 1e-4), one step with the
+# kernels against the plain versions (LM_TRAIN_GRAD_LOSS_RTOL), and the
+# int8 gradient quantization of a 1e7-element float32 gradient on the card
+# against the CPU's, bit for bit
+LM_MESH_TRAIN_DATA = dict(seq_len=64, global_batch=8)
+LM_MESH_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=5)
+LM_MESH_TRAIN_STEPS = 5
+LM_MESH_TRAIN_RTOL = 1e-4
+LM_QUANT_ELEMENTS = 10_000_000
+# part (b): rank 0 of a fake group of 256 on the (16, 16) mesh runs its share
+# of llama3-8b x train_4k (every layer, bf16 params, float32 moments, the
+# count's 4 microbatches, flash off): 1 warm step, LM_SHARDED_TRAIN_STEPS
+# timed, one profiled
+LM_SHARDED_TRAIN_CELL = ("llama3-8b", "train_4k")
+LM_SHARDED_TRAIN_STEPS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1558,7 +1596,7 @@ def paired_iteration_ms(torch, forest, boards, fcfg, tree, board, tcfg,
 
 def phase_hex_forest(torch):
     """The root-parallel forest path at full width: 8 trees of 32 lanes,
-    three self-play moves (32,768 playouts a member, then the visit-sum
+    three self-play moves (16,384 playouts a member, then the visit-sum
     move played, the forest re-rooted and two warm moves of 8,192), each
     sync iteration one pass for all members."""
     from repro_torch import parity, rng
@@ -2062,7 +2100,7 @@ def serve_engine(**kw):
 
 
 def serve_traffic():
-    """The mixed requests (playouts drawn from seed 0, tasks of grain 16)
+    """The mixed requests (playouts drawn from seed 0, tasks of grain 8)
     and the Hex forest tenant, as fresh request objects."""
     import numpy as np
     from repro_torch.serve.games import GameRequest
@@ -4856,13 +4894,14 @@ def phase_lm_train(torch):
     9 over 3 heads, vocab 49,152, tied embeddings, bf16, flash on), seed-0
     weights from ``init_params``: ``train.loop.train`` for LM_TRAIN_STEPS
     AdamW steps of the synthetic pipeline's 8 x 256 tokens in 2
-    microbatches, an ``AsyncSaver`` checkpoint at step 50 into a temporary
+    microbatches, an ``AsyncSaver`` checkpoint at step LM_TRAIN_CKPT into a
+    temporary
     directory (deleted at the end). Checks: every loss finite, none
     skipped, the mean of the last 10 at least LM_TRAIN_DROP nats below the
     first; rmsnorm launches 61 x 2 a step and flash 30 x 2 (tensor cores),
-    each with one plain backward, and no plain forward; the step-50
-    checkpoint restores bit for bit, and a run resumed from it gives the
-    straight run's step-50 loss exactly and its next 9 within
+    each with one plain backward, and no plain forward; that checkpoint
+    restores bit for bit, and a run resumed from it gives the straight
+    run's loss at that step exactly and its next 9 within
     LM_TRAIN_RESUME_RTOL. Then gradients with the kernels against the
     plain versions at full width (float32: rmsnorm only, then flash on the
     CUDA-core body; bf16: the loss, flash on tensor cores), each kernel's
@@ -4927,15 +4966,15 @@ def phase_lm_train(torch):
                     "rmsnorm": (2 * L + 1) * micro, "uct_select": 0}
         times = [h["time_s"] for h in hist]
 
-        # the step-50 checkpoint: bit for bit, then a resumed run
+        # the step-LM_TRAIN_CKPT checkpoint: bit for bit, then a resumed run
         t0 = time.perf_counter()
-        step50 = store.step_dir(ckpt, LM_TRAIN_CKPT)
+        ckpt_step = store.step_dir(ckpt, LM_TRAIN_CKPT)
         restored, extra = store.restore(ckpt, LM_TRAIN_CKPT,
                                         step_mod.abstract_state(mcfg),
                                         device="cuda")
         check(extra == {"data_step": LM_TRAIN_CKPT},
-              f"lm_train: step-50 extra {extra}")
-        with np.load(os.path.join(step50, "arrays.npz")) as z:
+              f"lm_train: step-{LM_TRAIN_CKPT} extra {extra}")
+        with np.load(os.path.join(ckpt_step, "arrays.npz")) as z:
             for key, t in store._flatten(restored).items():
                 saved = torch.from_numpy(z[key]).to("cuda")
                 check(torch.equal(t.to(saved.dtype), saved),
@@ -4947,8 +4986,8 @@ def phase_lm_train(torch):
         t0 = time.perf_counter()
         resume_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_resume_")
         try:
-            # the step-50 directory, linked (not copied) into a fresh one
-            shutil.copytree(step50, store.step_dir(resume_dir, LM_TRAIN_CKPT),
+            # the checkpoint's directory, linked (not copied) into a fresh one
+            shutil.copytree(ckpt_step, store.step_dir(resume_dir, LM_TRAIN_CKPT),
                             copy_function=os.link)
             rlog: list[str] = []
             resumed = train(mcfg, opt, dcfg, LoopConfig(
@@ -4963,7 +5002,8 @@ def phase_lm_train(torch):
         check(rlog[0] == f"[resume] restored step {LM_TRAIN_CKPT}, data_step "
                          f"{LM_TRAIN_CKPT}" and len(rl) == len(sl),
               f"lm_train: resume {rlog[:1]}, {len(rl)} steps")
-        check(rl[0] == sl[0], f"lm_train: resumed step-50 loss {rl[0]} != "
+        check(rl[0] == sl[0], f"lm_train: resumed step-{LM_TRAIN_CKPT} loss "
+                              f"{rl[0]} != "
                               f"the straight run's {sl[0]}")
         resume_err = max(abs(a - b) / abs(b) for a, b in zip(rl[1:], sl[1:]))
         check(resume_err <= LM_TRAIN_RESUME_RTOL,
@@ -5361,11 +5401,296 @@ def phase_lm_sharded(torch):
     return total
 
 
+
+def mesh_train_on_one_rank(torch) -> dict:
+    """Part (a) of ``lm_sharded_train``: a real process group of this
+    process alone (nccl) and its (1, 1) ("data", "model") ``DeviceMesh``
+    on the card. ``train.loop.train(mesh=)`` trains the reduced smollm-135m
+    twin (float32, flash off) for LM_MESH_TRAIN_STEPS steps with every leaf
+    a DTensor, and its losses must equal the unsharded loop's on the card
+    (same seed, same batches) within LM_MESH_TRAIN_RTOL; one step through
+    ``jit_train_step`` with the kernels (rmsnorm under autograd inside
+    ``local_region``: launches, one plain backward each, no plain forward)
+    against the same step under ``ops.plain_versions()`` on the same
+    weights, the loss within LM_TRAIN_GRAD_LOSS_RTOL; and the int8
+    quantization of a 1e7-element float32 gradient on the card equal to the
+    CPU's bit for bit. Returns the record and the rmsnorm launches."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.loop import LoopConfig, train
+    cfg = configs.reduced_config("smollm-135m")
+    dcfg = DataConfig(**LM_MESH_TRAIN_DATA)
+    opt = OptConfig(**LM_MESH_TRAIN_OPT)
+    loop = LoopConfig(steps=LM_MESH_TRAIN_STEPS, log_every=1)
+    out = {}
+    with lmesh.process_group("cuda"):
+        mesh = lmesh.make_group_mesh("cuda")
+        check(lmesh.mesh_dims(mesh) == {"data": 1, "model": 1},
+              f"lm_sharded_train: a group of one gives {mesh}")
+        counters, plain = lm_train_counters()
+        with plain:
+            t0 = time.perf_counter()
+            sharded = train(cfg, opt, dcfg, loop, mesh=mesh,
+                            log=lambda line: None, device="cuda")
+            out["mesh_seconds"] = time.perf_counter() - t0
+        counts = read_train_counters(counters, plain)
+        check(all(isinstance(t, DTensor) and t.to_local().is_cuda
+                  for t in (sharded["state"]["params"].tree()["final_norm"],
+                            sharded["state"]["opt"]["step"])),
+              "lm_sharded_train: the mesh run's state is not on the mesh")
+        t0 = time.perf_counter()
+        unsharded = train(cfg, opt, dcfg, loop, log=lambda line: None,
+                          device="cuda")
+        out["unsharded_seconds"] = time.perf_counter() - t0
+        got = [h["loss"] for h in sharded["history"]]
+        want = [h["loss"] for h in unsharded["history"]]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        check(len(got) == LM_MESH_TRAIN_STEPS and err <= LM_MESH_TRAIN_RTOL,
+              f"lm_sharded_train: mesh losses {got}, unsharded {want}")
+        norms = 2 * cfg.n_layers + 1
+        check(counts["rmsnorm"] == {
+            "launches": norms * LM_MESH_TRAIN_STEPS,
+            "plain_backwards": norms * LM_MESH_TRAIN_STEPS,
+            "plain_forwards": 0},
+              f"lm_sharded_train: the mesh run's rmsnorm counts {counts}")
+        out.update(losses=got, unsharded_losses=want, max_rel_err=err,
+                   counts=counts)
+        launches = counts["rmsnorm"]["launches"]
+
+        # one step, the kernels against the plain versions, same weights
+        state = step_mod.make_state(cfg, 1, device="cuda")
+        batch = make_batch_fn(dcfg, cfg)(0)
+        step = step_mod.jit_train_step(step_mod.make_train_step(cfg, opt),
+                                       mesh, cfg, batch, donate=False)
+        counters, plain = lm_train_counters()
+        with plain:
+            _, m_k = step(state, batch)
+            loss_k = float(m_k["loss"])
+        step_counts = read_train_counters(counters, plain)
+        with ops.plain_versions():
+            loss_p = float(step(state, batch)[1]["loss"])
+        launches += step_counts["rmsnorm"]["launches"]
+        check(step_counts["rmsnorm"] == {"launches": norms,
+                                         "plain_backwards": norms,
+                                         "plain_forwards": 0},
+              f"lm_sharded_train: kernel step counts {step_counts}")
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        check(loss_err <= LM_TRAIN_GRAD_LOSS_RTOL,
+              f"lm_sharded_train: the mesh step's loss {loss_k} with the "
+              f"kernels, {loss_p} plain")
+        out["kernels_vs_plain"] = {"loss": loss_k, "loss_plain": loss_p,
+                                   "rel_err": loss_err,
+                                   "counts": step_counts}
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    grad = torch.randn(LM_QUANT_ELEMENTS, generator=g, device="cuda") \
+        * torch.logspace(-6, 2, LM_QUANT_ELEMENTS, device="cuda")
+    q, scale = comp.quantize_int8(grad)
+    back = comp.dequantize_int8(q, scale, grad.shape, torch.float32)
+    q_cpu, scale_cpu = comp.quantize_int8(grad.cpu())
+    back_cpu = comp.dequantize_int8(q_cpu, scale_cpu, grad.shape,
+                                    torch.float32)
+    check(torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu)
+          and torch.equal(back.cpu(), back_cpu),
+          "lm_sharded_train: int8 quantization on the card differs from the "
+          "CPU's")
+    out["quantize"] = {"elements": LM_QUANT_ELEMENTS, "bit_equal_cpu": True,
+                       "max_rel_err": float(((back - grad).abs().max())
+                                            / grad.abs().max())}
+    return out, launches
+
+
+def sharded_train_inputs(torch, spec, mesh):
+    """Rank 0's blocks of the train cell's state and batch, each made
+    directly on the card (the whole tensor never exists): seed-0 weights
+    (a generator a leaf, float32 at 0.02, cast), zero moments and step,
+    seeded tokens and labels, a mask of ones."""
+    from repro_torch.launch import inputs as inp
+    from repro_torch.train import step as step_mod
+
+    cfg, rules = spec["cfg"], spec["rules"]
+    seed = iter(range(1 << 20))
+
+    def weight(local_shape, dtype):
+        g = torch.Generator(device="cuda").manual_seed(next(seed))
+        return (0.02 * torch.randn(local_shape, generator=g, device="cuda")
+                ).to(dtype)
+
+    def zeros(local_shape, dtype):
+        return torch.zeros(local_shape, dtype=dtype, device="cuda")
+
+    abstract = step_mod.abstract_state(cfg, spec["moment_dtype"])
+    axes = spec["state_axes"]
+    state = {"params": inp.place_tree(mesh, abstract["params"],
+                                      axes["params"], rules, init=weight),
+             "opt": inp.place_tree(mesh, abstract["opt"], axes["opt"], rules,
+                                   init=zeros)}
+    g = torch.Generator(device="cuda").manual_seed(29)
+
+    def tokens(local_shape, dtype):
+        return torch.randint(0, cfg.vocab, local_shape, generator=g,
+                             device="cuda", dtype=dtype)
+
+    meta = spec["batch"]
+    batch = {k: inp.place_tree(mesh, {k: meta[k]}, None, rules,
+                               init=zeros if k == "mask" else tokens)[k]
+             for k in ("tokens", "labels", "mask")}
+    batch["mask"].to_local().fill_(1.0)
+    return step_mod.trainable_state(cfg, state), batch
+
+
+def phase_lm_sharded_train(torch):
+    """Training on a mesh: part (a) ``mesh_train_on_one_rank`` (real
+    values on a real group of one rank), then part (b), one rank's share
+    of a full-width train step on the single-pod (16, 16) mesh. This
+    process is rank 0 of a ``"fake"`` process group of 256 ranks, whose
+    collectives move nothing; the cell is llama3-8b x train_4k (32 layers,
+    bf16 params, float32 moments, 4 microbatches of 64 x 4,096 tokens, flash
+    off, as the sharded dry-run counts it). It is counted first by
+    ``launch.dryrun.analyze_cell`` on ``meta``; ``train.step.
+    state_shardings`` — the reference's, which keeps an axis that does not
+    divide — must refuse this cell (8 kv heads over 16), so rank 0's state
+    and batch blocks are made directly on the card by the dry-run's own
+    divisibility-aware placements (``sharded_train_inputs``); 1 warm and
+    LM_SHARDED_TRAIN_STEPS timed steps run through ``jit_train_step``, and
+    one more under the profiler. Checks: rmsnorm launched and
+    backward as often as the count calls them, every step, and no plain
+    forward; the count's peak within LM_SHARDED_PEAK_RATIO of the card's;
+    no step shorter than the rank's compute term or than moving its
+    arguments and outputs once. Values are not checked (a fake collective
+    writes nothing; AdamW's skip is a ``torch.where``, so the work does not
+    depend on them)."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import inputs as inp
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as step_mod
+    t_phase = time.perf_counter()
+    one_rank, launches_a = mesh_train_on_one_rank(torch)
+    one_rank["seconds"] = time.perf_counter() - t_phase
+    arch, shape_name = LM_SHARDED_TRAIN_CELL
+    with lmesh.fake_process_group(256):
+        count_mesh = lmesh.make_production_mesh()
+        mesh = lmesh.make_production_mesh(device_type="cuda")
+        t0 = time.perf_counter()
+        res = dryrun.analyze_cell(arch, shape_name, "single",
+                                  mesh=count_mesh)
+        count_s = time.perf_counter() - t0
+        spec = inp.input_specs(arch, shape_name, {"use_flash": False})
+        cfg = spec["cfg"]
+        try:
+            step_mod.state_shardings(mesh, cfg, spec["rules"])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "attn.wk dimension 2 of size 8" in refused,
+              f"lm_sharded_train: state_shardings on (16, 16): {refused}")
+        r, mem = res["roofline"], res["memory"]
+        calls = res["kernels"]["calls"]
+        backwards = res["kernels"]["plain_backwards"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, batch = sharded_train_inputs(torch, spec, mesh)
+        step = step_mod.jit_train_step(
+            step_mod.make_train_step(
+                cfg, OptConfig(moment_dtype=spec["moment_dtype"]),
+                spec["n_microbatches"], torch_dtype(spec["accum_dtype"])),
+            mesh, cfg, spec["batch"], spec["rules"])
+        counters, plain = lm_train_counters()
+        times = []
+        with plain:
+            for _ in range(1 + LM_SHARDED_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            del metrics
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = read_train_counters(counters, plain)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels, device_ms = cuda_activity(prof)
+        del state, batch, step, prof
+        torch.cuda.empty_cache()
+    n = 1 + LM_SHARDED_TRAIN_STEPS
+    check(calls["rmsnorm"] > 0 and calls["flash_attention"] == 0
+          and counts["rmsnorm"] == {"launches": n * calls["rmsnorm"],
+                                    "plain_backwards": n * backwards["rmsnorm"],
+                                    "plain_forwards": 0}
+          and counts["flash_attention"]["launches"] == 0,
+          f"lm_sharded_train: counts {counts} over {n} steps, the count's "
+          f"calls {calls} and backwards {backwards} a step")
+    io_s = (mem["argument_bytes"] + mem["output_bytes"]) / HBM_BYTES_PER_S
+    check(min(times[1:]) >= max(r["compute_s"], io_s),
+          f"lm_sharded_train: a step of {min(times[1:])} s under the rank's "
+          f"compute term {r['compute_s']} s or its argument and output "
+          f"bytes' {io_s} s")
+    est = mem["peak_bytes_per_chip"]
+    lo, hi = LM_SHARDED_PEAK_RATIO
+    check(lo <= est / peak <= hi,
+          f"lm_sharded_train: the count's peak {est} B against the card's "
+          f"{peak} B")
+    measured = statistics.median(times[1:])
+    coll = res["collectives"]
+    cell = {
+        "arch": arch, "shape": shape_name, "mesh": res["mesh_dims"],
+        "rank": 0, "n_params": res["n_params"], "n_layers": cfg.n_layers,
+        "global_batch": spec["shape"].global_batch,
+        "seq_len": spec["shape"].seq_len,
+        "n_microbatches": spec["n_microbatches"],
+        "moment_dtype": spec["moment_dtype"],
+        "state_shardings_refused": refused,
+        "flops_per_rank": r["flops_per_chip"],
+        "matmul_flops_per_rank": res["cost"]["matmul_flops"],
+        "bytes_per_rank": r["hbm_bytes_per_chip"],
+        "wire_bytes_per_rank": r["wire_bytes_per_chip"],
+        "collectives": {op: c for op, (c, _) in coll["by_op"].items()},
+        "collective_count": coll["count"],
+        "compute_ms": 1e3 * r["compute_s"], "memory_ms": 1e3 * r["memory_s"],
+        "collective_ms": 1e3 * r["collective_s"], "io_ms": 1e3 * io_s,
+        "measured_ms": 1e3 * measured, "steps_ms": [1e3 * t for t in times],
+        "tokens_per_s_rank": spec["shape"].global_batch
+        * spec["shape"].seq_len / 256 / measured,
+        "profiled_step": {"cuda_kernels": kernels, "device_ms": device_ms,
+                          "wall_ms": wall_ms,
+                          "device_idle_share": None if device_ms is None
+                          else 1 - device_ms / wall_ms},
+        "peak_count_mb": est / 2**20, "peak_measured_mb": peak / 2**20,
+        "peak_ratio": est / peak,
+        "argument_mb": mem["argument_bytes"] / 2**20,
+        "launches": counts["rmsnorm"]["launches"],
+        "rmsnorm_calls_a_step": calls["rmsnorm"],
+        "rmsnorm_backwards_a_step": backwards["rmsnorm"], "count_s": count_s}
+    emit("lm_sharded_train", one_rank=one_rank, cell=cell,
+         phase_seconds=time.perf_counter() - t_phase)
+    return {"rmsnorm": launches_a + counts["rmsnorm"]["launches"],
+            "flash_attention": 0, "uct_select": 0}
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--playouts", type=int, default=PAPER_PLAYOUTS,
                    help="budget of the full-width search")
-    p.add_argument("--sequential-playouts", type=int, default=2048)
+    p.add_argument("--sequential-playouts", type=int, default=1024,
+                   help="budget of the scalar sequential search (2,048 "
+                        "until lm_sharded_train needed the time)")
     p.add_argument("--only-kernels", action="store_true",
                    help="stop after the build and the kernel checks")
     args = p.parse_args(argv)
@@ -5412,6 +5737,7 @@ def main(argv=None) -> int:
     train_launches, train_bodies = phase_lm_train(torch)
     roofline_launches, roofline_bodies = phase_lm_roofline(torch)
     sharded_lm_launches = phase_lm_sharded(torch)
+    sharded_train_launches = phase_lm_sharded_train(torch)
     flash_by_body = add_counts(flash_by_body, batch_bodies, serve_bodies,
                                mcts_bodies, families_bodies, ve_bodies,
                                train_bodies, roofline_bodies)
@@ -5425,8 +5751,9 @@ def main(argv=None) -> int:
         # search, the batched search, the LM engines, the families, the
         # vlm and encdec models, training and the roofline cells (flash and
         # rmsnorm: the forward's launches), rmsnorm on one rank's share of
-        # the sharded decode cells; hex_winner judges filled
-        # boards, which no path asks for
+        # the sharded decode cells and on training on a mesh (a group of
+        # one rank, then one rank's share of a train cell); hex_winner
+        # judges filled boards, which no path asks for
         by_path = {"hex_search": launches.get(r["name"], 0),
                    "paper_sweep": sweep_launches.get(r["name"], 0),
                    "hex_forest": forest_launches.get(r["name"], 0),
@@ -5441,7 +5768,9 @@ def main(argv=None) -> int:
                    "lm_vlm_encdec": ve_launches.get(r["name"], 0),
                    "lm_train": train_launches.get(r["name"], 0),
                    "lm_roofline": roofline_launches.get(r["name"], 0),
-                   "lm_sharded": sharded_lm_launches.get(r["name"], 0)}
+                   "lm_sharded": sharded_lm_launches.get(r["name"], 0),
+                   "lm_sharded_train":
+                       sharded_train_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         for body, body_record in r.get("bodies", {}).items():

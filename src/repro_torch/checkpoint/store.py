@@ -24,9 +24,17 @@ leaf's dtype.
   and writes it to disk on a background thread, overlapping the I/O with
   the next training steps; ``wait()`` joins and re-raises its error.
 
+- **elastic**: arrays are saved as global values. Saving a tree of
+  DTensors (a state on a mesh) gathers each one whole on every rank
+  (``full_tensor()``, in the tree's order, so that every rank issues the
+  same collectives), only rank 0 of the group writes, and a barrier keeps
+  the other ranks from reading ``LATEST`` before it is written.
+  ``restore(shardings=)`` reads each whole array on every rank and keeps
+  the rank's block (``sharding.rules.place``): a checkpoint written on one
+  card restores onto a mesh, and one written on a mesh onto one card.
+
 The flatten helpers are shared with the serving snapshots
-(``repro_torch.serve.resilience``). One card only: ``restore`` with
-``shardings`` refuses, naming the multi-card row of ROADMAP.md (A14c).
+(``repro_torch.serve.resilience``).
 """
 
 from __future__ import annotations
@@ -39,6 +47,9 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.rules import NamedSharding, place
 
 _SEP = "/"
 
@@ -63,23 +74,48 @@ def _children(node) -> list[tuple[str, Any]] | None:
     return None
 
 
-def _walk(node, prefix: tuple[str, ...], out: list) -> None:
+def _walk(node, prefix: tuple[str, ...], out: list, leaf_type) -> None:
     if node is None:
         return
     node = _as_tree(node)
-    kids = _children(node)
+    kids = None if isinstance(node, leaf_type) else _children(node)
     if kids is None:
         out.append((_SEP.join(prefix), node))
         return
     for entry, child in kids:
-        _walk(child, prefix + (entry,), out)
+        _walk(child, prefix + (entry,), out, leaf_type)
 
 
-def _flatten(tree: Any) -> dict[str, Any]:
-    """``{path: leaf}`` over NamedTuples, dicts, lists and tuples."""
+def _flatten(tree: Any, leaf_type=()) -> dict[str, Any]:
+    """``{path: leaf}`` over NamedTuples, dicts, lists and tuples (an
+    instance of ``leaf_type`` is a leaf)."""
     out: list = []
-    _walk(tree, (), out)
+    _walk(tree, (), out, leaf_type)
     return dict(out)
+
+
+def _gathered(tree: Any) -> tuple[dict[str, Any], bool]:
+    """(``{path: leaf}`` with every DTensor leaf gathered whole, whether
+    there was one). Every rank gathers, in path order."""
+    flat = _flatten(tree)
+    sharded = False
+    for k, v in flat.items():
+        if isinstance(v, DTensor):
+            flat[k] = v.detach().full_tensor()
+            sharded = True
+    return flat, sharded
+
+
+def _writes() -> bool:
+    """Whether this process writes a sharded tree: rank 0 of the group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _rebuild(node, prefix: tuple[str, ...], flat: dict[str, Any]):
@@ -133,9 +169,20 @@ def _to_numpy(v) -> np.ndarray:
 
 
 def save(base: str, step: int, tree: Any, extra: dict | None = None) -> str:
-    """Synchronous atomic save of a tree of tensors (or numpy arrays)."""
+    """Synchronous atomic save of a tree of tensors (or numpy arrays);
+    DTensor leaves gathered, written by rank 0 (module docstring)."""
+    flat, sharded = _gathered(tree)
+    final = (_write(base, step, flat, extra) if _writes() or not sharded
+             else step_dir(base, step))
+    if sharded:
+        _barrier()
+    return final
+
+
+def _write(base: str, step: int, flat: dict[str, Any],
+           extra: dict | None) -> str:
     os.makedirs(base, exist_ok=True)
-    host = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    host = {k: _to_numpy(v) for k, v in flat.items()}
     final = step_dir(base, step)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -187,13 +234,11 @@ def restore(base: str, step: int, template: Any, shardings: Any = None,
     the ``meta`` tensors of ``train.step.abstract_state``); each
     array is cast to its template leaf's dtype and put on ``device``, or,
     when ``device`` is None, on the template leaf's device (a ``meta``
-    template: CUDA). ``shardings`` (the reference's elastic reshard) is the
-    multi-card row of ROADMAP.md (A14c) and refuses."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): resharding across cards is the "
-            "multi-card row of ROADMAP.md (A14c); this port restores onto "
-            "one device")
+    template: CUDA). ``shardings`` (a tree of ``NamedSharding`` like the
+    template's, ``train.step.state_shardings``) is the reference's elastic
+    reshard: each leaf becomes a DTensor of which this rank keeps its block,
+    by default on its mesh's device type."""
+    sh = None if shardings is None else _flatten(shardings, NamedSharding)
     d = step_dir(base, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -205,8 +250,11 @@ def restore(base: str, step: int, template: Any, shardings: Any = None,
     for key, arr in _flatten(tree).items():
         tmpl = want[key]
         dev = device if device is not None else (
+            sh[key].mesh.device_type if sh is not None else
             "cuda" if tmpl.device.type == "meta" else tmpl.device)
         out[key] = torch.as_tensor(arr).to(device=dev, dtype=tmpl.dtype)
+        if sh is not None:
+            out[key] = place(sh[key], out[key])
     return _unflatten_like(template, out), manifest.get("extra", {})
 
 
@@ -218,11 +266,15 @@ class AsyncSaver:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._sharded = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:       # every rank, once rank 0's write is done
+            self._sharded = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -231,13 +283,16 @@ class AsyncSaver:
              on_done: Callable[[str], None] | None = None):
         self.wait()                              # one in flight at a time
         # a host copy now: training goes on writing the tensors in place
+        flat, self._sharded = _gathered(tree)
+        if self._sharded and not _writes():
+            return
         host = {k: (v.detach().to("cpu", copy=True)
                     if isinstance(v, torch.Tensor) else np.array(v))
-                for k, v in _flatten(tree).items()}
+                for k, v in flat.items()}
 
         def work():
             try:
-                path = save(self.base, step, host, extra)
+                path = _write(self.base, step, host, extra)
                 self._gc()
                 if on_done:
                     on_done(path)

@@ -15,7 +15,10 @@ multi-card path on the CPU and ``chip_smoke.py`` on one card.
 
 ``make_ensemble_mesh`` is the root-parallel forest's 1-D ``"ens"`` mesh
 (``core.root_parallel``). ``make_host_mesh`` factors whatever devices there
-are into ``("data", "model")``.
+are into ``("data", "model")``; ``make_group_mesh`` factors the ranks of
+the initialized process group the same way, as the ``DeviceMesh`` that
+``train.loop.train(mesh=)`` trains on, and ``process_group`` starts that
+group for a launch.
 
 ``make_production_mesh`` is the reference's pair of LM meshes, the
 sharded analysis's (``launch.dryrun``): single pod (16, 16) over ("data",
@@ -145,6 +148,52 @@ def fake_process_group(world_size: int = FAKE_WORLD, rank: int = 0):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def process_group(device_type: str = "cuda"):
+    """The process group a training launch runs in: the initialized one
+    (left as it is), else one started from ``torchrun``'s environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``;
+    ``LOCAL_RANK`` picks the card), else a group of this process alone on
+    an in-process store: ``nccl`` for ``"cuda"``, ``gloo`` for ``"cpu"``.
+    Torn down on exit only if started here. ``"cuda"`` on a host without a
+    card raises: it does not fall back to the CPU."""
+    import os
+
+    import torch.distributed as dist
+
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("process_group: no CUDA device visible; ask for "
+                           "the CPU (gloo) explicitly")
+    backend = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    started = not dist.is_initialized()
+    if started:
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            if device_type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+    try:
+        yield
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def make_group_mesh(device_type: str = "cuda"):
+    """The ``("data", "model")`` ``DeviceMesh`` over every rank of the
+    initialized process group, factored as ``make_host_mesh`` factors
+    devices."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = dist.get_world_size()
+    m = max(d for d in (1, 2, 4, 8) if n % d == 0)
+    return DeviceMesh(device_type, torch.arange(n).reshape(n // m, m),
+                      mesh_dim_names=("data", "model"))
 
 
 def make_ensemble_mesh(devices=None) -> Mesh:

@@ -6,18 +6,26 @@ on one card with the fault-tolerant loop (``repro_torch.train.loop``):
 async checkpoints every ``--ckpt-every`` steps, resume from the newest
 valid checkpoint, the non-finite-gradient skip, the straggler watchdog.
 
+``--mesh`` trains on a ``("data", "model")`` mesh over the ranks of a
+process group (``launch.mesh.process_group``: the one ``torchrun`` starts,
+``torchrun --nproc-per-node N -m repro_torch.launch.train --mesh``, else a
+group of this process alone), one rank a process, the state and the batch
+sharded over the ranks; rank 0 prints.
+
 The flags and the printed lines are the JAX launcher's, plus ``--device``
 (default ``cuda``); ``--device cpu`` trains with the kernels' plain PyTorch
-versions. ``--mesh`` (training under a device mesh) is the multi-card row
-of ROADMAP.md and refuses.
+versions (and ``--mesh`` on gloo). ``--mesh --device cuda`` on a host
+without a card raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 from repro_torch import configs
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch import mesh as lmesh
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.loop import LoopConfig, train
 
@@ -35,19 +43,25 @@ def main(argv=None):
     p.add_argument("--full-config", action="store_true",
                    help="use the full published config (default: reduced twin)")
     p.add_argument("--mesh", action="store_true",
-                   help="train under a mesh over the visible local devices "
-                        "(the multi-card row, A14c: refused)")
+                   help="train under a mesh over the ranks of the process "
+                        "group (torchrun's, else this process alone)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (the card, default) or cpu (plain versions)")
     args = p.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: training under a device mesh is the multi-card row of "
-            "ROADMAP.md (A14c); this port trains on one card")
     cfg = (configs.get_config(args.arch) if args.full_config
            else configs.reduced_config(args.arch))
+    with (lmesh.process_group(args.device) if args.mesh
+          else contextlib.nullcontext()):
+        return _run(args, cfg)
+
+
+def _run(args, cfg):
+    import torch.distributed as dist
+
+    mesh = lmesh.make_group_mesh(args.device) if args.mesh else None
+    lead = mesh is None or dist.get_rank() == 0
     out = train(
         cfg,
         OptConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20),
@@ -57,11 +71,13 @@ def main(argv=None):
         LoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                    ckpt_every=args.ckpt_every,
                    n_microbatches=args.microbatches, seed=args.seed),
+        mesh=mesh, log=print if lead else (lambda line: None),
         device=args.device,
     )
-    print(f"final loss {out['final_loss']:.4f} | "
-          f"{out['steps_per_s']:.2f} steps/s | "
-          f"stragglers {out['stragglers']}")
+    if lead:
+        print(f"final loss {out['final_loss']:.4f} | "
+              f"{out['steps_per_s']:.2f} steps/s | "
+              f"stragglers {out['stragglers']}")
     return out
 
 

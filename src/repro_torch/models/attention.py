@@ -84,7 +84,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w2 = w.to(x.dtype).reshape(d, h * k)
     if isinstance(w2, DTensor):
         w2 = shr.splittable_grad(w2, h)
-    y = x @ w2
+    y = shr.fold_matmul(x, w2)
     if isinstance(y, DTensor):
         y = shr.heads_splittable(y, h)
     return y.reshape(*x.shape[:-1], h, k)
@@ -111,7 +111,7 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     flat = out.reshape(B, S, H * k)
     if isinstance(flat, DTensor):
         flat = shr.splittable_grad(flat, H)
-    return flat @ wo.to(out.dtype).reshape(H * k, -1)
+    return shr.fold_matmul(flat, wo.to(out.dtype).reshape(H * k, -1))
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -393,7 +393,8 @@ def _mla_qkv(params, cfg: ModelConfig, x, pos, c_kv, k_pe):
     dt = x.dtype
     H = cfg.n_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    cq = rmsnorm(x @ params["wq_a"].to(dt), params["q_norm"], cfg.norm_eps)
+    cq = rmsnorm(shr.fold_matmul(x, params["wq_a"].to(dt)), params["q_norm"],
+                 cfg.norm_eps)
     q = _proj(cq, params["wq_b"])
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
@@ -409,9 +410,10 @@ def _mla_qkv(params, cfg: ModelConfig, x, pos, c_kv, k_pe):
 def _mla_latent(params, cfg: ModelConfig, x, pos):
     """The cached latent of x: c_kv (B,S,kvr) normed, k_pe (B,S,dr) rotated."""
     dt = x.dtype
-    c_kv = rmsnorm(x @ params["wkv_a"].to(dt), params["kv_norm"], cfg.norm_eps)
-    k_pe = apply_rope((x @ params["wk_rope"].to(dt))[:, :, None, :],
-                      pos, cfg.rope_theta)[:, :, 0, :]
+    c_kv = rmsnorm(shr.fold_matmul(x, params["wkv_a"].to(dt)),
+                   params["kv_norm"], cfg.norm_eps)
+    k_pe = shr.fold_matmul(x, params["wk_rope"].to(dt))
+    k_pe = apply_rope(k_pe[:, :, None, :], pos, cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_pe
 
 

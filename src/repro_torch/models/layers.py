@@ -108,12 +108,13 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.act)
     dt = x.dtype
+    mm = shr.fold_matmul
     if "wg" in params:
-        h = act(x @ params["wg"].to(dt)) * (x @ params["wu"].to(dt))
+        h = act(mm(x, params["wg"].to(dt))) * mm(x, params["wu"].to(dt))
     else:
-        h = act(x @ params["wu"].to(dt))
+        h = act(mm(x, params["wu"].to(dt)))
     h = shard(h, ("batch", None, "mlp"))
-    return h @ params["wd"].to(dt)
+    return mm(h, params["wd"].to(dt))
 
 
 # -------------------------------------------------------------- embeddings ----
@@ -164,7 +165,7 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         w = params["embedding"].T.to(x.dtype)
     else:
         w = params["unembed"].to(x.dtype)
-    return shard(x @ w, ("batch", None, "vocab"))
+    return shard(shr.fold_matmul(x, w), ("batch", None, "vocab"))
 
 
 # -------------------------------------------------------------------- loss ----
@@ -239,13 +240,15 @@ def chunked_ce_loss(params: dict, cfg: ModelConfig, x: torch.Tensor,
         m = mc.to(torch.float32)
         return (nll * m).sum(), m.sum()
 
+    x = shr.fold_rows(x)     # each chunk a slice of the whole sequence
     ones = torch.ones((B, S), dtype=torch.float32, device=x.device)
     m_all = ones if mask is None else mask
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // ck):
         sl = slice(i * ck, (i + 1) * ck)
-        n_c, m_c = _ckpt.checkpoint(chunk, x[:, sl], targets[:, sl],
+        n_c, m_c = _ckpt.checkpoint(shr.under_current_rules(chunk),
+                                    x[:, sl], targets[:, sl],
                                     m_all[:, sl], use_reentrant=False)
         nll_sum, m_sum = nll_sum + n_c, m_sum + m_c
     return nll_sum / torch.clamp(m_sum, min=1.0)

@@ -45,6 +45,7 @@ from repro_torch.models.common import (ModelConfig, dense_spec, norm_spec,
                                        tree_set, unstack)
 from repro_torch.models.layers import (chunked_ce_loss, embed, embed_specs,
                                        mlp, mlp_specs, rmsnorm, unembed)
+from repro_torch.sharding import rules as shr
 from repro_torch.sharding.rules import shard
 
 
@@ -100,7 +101,8 @@ def _maybe_remat(f, cfg: ModelConfig):
     def remat(*args, **kw):
         if not torch.is_grad_enabled():
             return f(*args, **kw)
-        return _ckpt.checkpoint(f, *args, use_reentrant=False, **kw)
+        return _ckpt.checkpoint(shr.under_current_rules(f), *args,
+                                use_reentrant=False, **kw)
     return remat
 
 

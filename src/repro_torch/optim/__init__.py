@@ -1,2 +1,2 @@
-"""The optimizer (port of ``repro.optim``: AdamW; the int8 gradient
-compression waits for the multi-card row of ROADMAP.md, A14c)."""
+"""The optimizer (port of ``repro.optim``): AdamW (``adamw``) and the int8
+gradient compression of the cross-pod reduce (``compression``)."""

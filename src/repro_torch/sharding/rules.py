@@ -143,6 +143,21 @@ def use_rules(rules: dict[str, Any], mesh: Any = None):
             _state.mesh = old_m
 
 
+def under_current_rules(fn):
+    """``fn`` bound to the rules and mesh current now: a recomputation in
+    the backward (``torch.utils.checkpoint``) may run on the autograd
+    engine's device thread, which does not see this thread's
+    ``use_rules``. ``fn`` itself when none is set."""
+    rules, mesh = getattr(_state, "rules", None), current_mesh()
+    if rules is None and mesh is None:
+        return fn
+
+    def bound(*args, **kw):
+        with use_rules(rules or DEFAULT_RULES, mesh):
+            return fn(*args, **kw)
+    return bound
+
+
 def _mesh_axes(mesh: Any):
     if mesh is None:
         return None
@@ -260,9 +275,17 @@ def distribute_to(mesh, t, axes: tuple[str | None, ...],
     real one — or, with ``init(local_shape, dtype)``, the block that
     ``init`` makes (the whole tensor is never built). A leaf that requires
     grad stays a leaf that requires grad."""
+    return place(NamedSharding(mesh, spec_for(mesh, axes, tuple(t.shape),
+                                              rules)), t, init)
+
+
+def place(sharding: NamedSharding, t, init=None):
+    """``t`` as a DTensor on ``sharding.mesh`` under ``sharding.spec``,
+    which must divide ``t``'s shape (``distribute_to``'s contract for the
+    rest: this rank keeps only its own block)."""
     from torch.distributed.tensor import DTensor
 
-    spec = spec_for(mesh, axes, tuple(t.shape), rules)
+    mesh, spec = sharding
     sl = local_slices(mesh, spec, tuple(t.shape), tuple(mesh.get_coordinate()))
     local_shape = tuple(s.stop - s.start for s in sl)
     if init is not None:
@@ -457,20 +480,20 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, op: str, axis: str, grad: str):
-        ctx.axis, ctx.grad = axis, grad
-        return _reduce(x, op, axis)
+        # the mesh kept for the backward, which may run on another thread
+        ctx.mesh, ctx.axis, ctx.grad = current_mesh(), axis, grad
+        return _reduce(x, op, ctx.mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.grad == "sum":
-            g = _reduce(g.contiguous(), "sum", ctx.axis)
+            g = _reduce(g.contiguous(), "sum", ctx.mesh, ctx.axis)
         return g, None, None, None
 
 
-def _reduce(x, op: str, axis: str):
+def _reduce(x, op: str, mesh, axis: str):
     import torch.distributed._functional_collectives as funcol
 
-    mesh = current_mesh()
     out = funcol.all_reduce(x, op, (mesh, axis_names(mesh).index(axis)))
     return out.wait() if hasattr(out, "wait") else out
 
@@ -522,6 +545,48 @@ def splittable_grad(y, h: int):
     (h, k): its gradient is made ``heads_splittable`` before the flatten's
     backward unflattens it."""
     return _SplittableGrad.apply(y, h)
+
+
+def fold_rows(x):
+    """A DTensor ``x`` with every dimension between the first and the last
+    whole (gathered where split), so that a matmul may fold them into its
+    rows: a view merges a split dimension only as the first of the merged
+    group, and DTensor (as of torch 2.11) refuses the fold of a sequence
+    split by ``act_seq``, where the reference's partitioner regathers it
+    (torch 2.13's matmul gathers it too, inside). Anything else is
+    returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor) or x.dim() < 3:
+        return x
+    middle = range(1, x.dim() - 1)
+    pl = [Replicate() if any(p.is_shard(d) for d in middle) else p
+          for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+class _FoldGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fold_rows(g)
+
+
+def fold_matmul(x, w):
+    """``x @ w`` (x of rank 3 or more, w of rank 2) with ``x``'s middle
+    dimensions whole (``fold_rows``), and the product's gradient made whole
+    there too before the matmul's backward folds it: the gradient arriving
+    from a block edge's ``act_seq`` annotation is split over the
+    sequence."""
+    from torch.distributed.tensor import DTensor
+
+    y = fold_rows(x) @ w
+    return _FoldGrad.apply(y) if isinstance(y, DTensor) else y
 
 
 def whole_dims(x, dims: tuple[int, ...]):

@@ -1,5 +1,6 @@
-"""Fault-tolerant training loop on one card: checkpoint/restart,
-skip-on-spike, watchdog (port of ``repro.train.loop``).
+"""Fault-tolerant training loop, on one card or on a mesh:
+checkpoint/restart, skip-on-spike, watchdog (port of
+``repro.train.loop``).
 
 - **restart**: on startup the loop restores the newest valid checkpoint
   (params, optimizer and the data iterator's step) and continues exactly
@@ -16,8 +17,15 @@ skip-on-spike, watchdog (port of ``repro.train.loop``).
 
 Each step ends in a host read of its metrics, which waits for the card: a
 step's wall time is its device time plus whatever the host adds. The
-history and the return dict have the reference's fields. ``mesh=`` is the
-multi-card row of ROADMAP.md (A14c) and refuses.
+history and the return dict have the reference's fields.
+
+With ``mesh=`` (a ``DeviceMesh`` over the process group's ranks, one
+process a rank) every rank runs the loop: the state is placed by
+``train.step.state_shardings`` (a fresh one made whole, then placed; a
+resume restored onto the mesh), and each rank draws the same global batch
+from the seed and keeps its block (``train.step.jit_train_step``). A
+checkpoint is gathered on every rank and written by rank 0
+(``checkpoint.store``).
 """
 
 from __future__ import annotations
@@ -51,13 +59,17 @@ class LoopConfig:
 def train(cfg: ModelConfig, opt_cfg: adamw.OptConfig, data_cfg: DataConfig,
           loop: LoopConfig, mesh=None, log: Callable[[str], None] = print,
           device=None) -> dict[str, Any]:
-    """Run (or resume) a training job on ``device`` (``None`` = CUDA);
-    returns the final metrics and the history. The newest checkpoint in
-    ``loop.ckpt_dir`` is resumed from; without one, fresh weights from
-    ``loop.seed``."""
-    if mesh is not None:
-        step_mod._refuse("train(mesh=...)")
+    """Run (or resume) a training job on ``device`` (``None`` = CUDA), or
+    on ``mesh``, whose device type it must be; returns the final metrics
+    and the history. The newest checkpoint in ``loop.ckpt_dir`` is resumed
+    from; without one, fresh weights from ``loop.seed``."""
     device = step_mod._device(device)
+    shardings = None
+    if mesh is not None:
+        if mesh.device_type != device.type:
+            raise ValueError(f"train: a {mesh.device_type} mesh, device "
+                             f"{device}")
+        shardings = step_mod.state_shardings(mesh, cfg)
     step_fn = step_mod.make_train_step(cfg, opt_cfg, loop.n_microbatches)
     batch_fn = make_batch_fn(data_cfg, cfg)
 
@@ -70,12 +82,17 @@ def train(cfg: ModelConfig, opt_cfg: adamw.OptConfig, data_cfg: DataConfig,
         if last is not None:
             state, extra = store.restore(loop.ckpt_dir, last,
                                          step_mod.abstract_state(cfg),
-                                         device=device)
+                                         shardings, device=device)
             start_step = int(extra.get("data_step", last))
             log(f"[resume] restored step {last}, data_step {start_step}")
 
     if state is None:
         state = step_mod.make_state(cfg, loop.seed, device=device)
+        if mesh is not None:
+            state = step_mod.place_state(cfg, state, shardings)
+    if mesh is not None:
+        step_fn = step_mod.jit_train_step(step_fn, mesh, cfg,
+                                          batch_fn(start_step))
     state = step_mod.trainable_state(cfg, state)
 
     data = Prefetcher(batch_fn, start_step=start_step)

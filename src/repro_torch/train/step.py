@@ -1,5 +1,5 @@
-"""Training step on one card: loss + grad + AdamW, microbatched (port of
-``repro.train.step``'s single-card half).
+"""Training step: loss + grad + AdamW, microbatched, on one card or on a
+mesh (port of ``repro.train.step``).
 
 **Grain size control, the training-side analogue** (DESIGN.md §4): the
 global batch is split into ``n_microbatches`` grains, each a forward and a
@@ -12,25 +12,32 @@ The state is ``{"params": TransformerLM (trainable), "opt": {"m", "v",
 "step"}}``, the reference's tree: it flattens to the reference's checkpoint
 keys (``checkpoint.store``). The step updates it in place and returns it.
 
-The multi-card half — ``make_train_step_compressed`` (int8 gradients across
-pods), ``state_shardings``, ``batch_shardings``, ``jit_train_step`` — is the
-multi-card row of ROADMAP.md, item A14c: those names exist and refuse,
-naming it.
+On a mesh (a ``torch.distributed`` ``DeviceMesh``) the state and the batch
+are DTensors: ``state_shardings`` places the state by ``state_axes``
+(moments like params, ``step`` replicated), ``batch_shardings`` the batch
+by its leading axis, and ``jit_train_step`` — the reference's ``jax.jit``
+with shardings — places them and runs a step under the mesh's rules, the
+same ``make_train_step``. ``make_train_step_compressed`` averages the
+gradients across pods with int8 on the wire (``optim.compression``).
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.launch.mesh import axis_names, mesh_dims
 from repro_torch.models import api
 from repro_torch.models.common import (ModelConfig, torch_dtype, tree_leaves,
                                        tree_map, tree_set)
 from repro_torch.models.transformer import TransformerLM, as_tree
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules as shr
 
 BATCH_KEYS = ("tokens", "labels", "mask", "patches", "frames")
-MULTI_CARD = "the multi-card row of ROADMAP.md (A14c, multi-card training)"
 
 
 def _device(device) -> torch.device:
@@ -154,25 +161,177 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     return step
 
 
-def _refuse(name: str):
-    raise NotImplementedError(
-        f"{name}: sharded and multi-card training is {MULTI_CARD}; this "
-        "port trains on one card")
+# --------------------------------------------------------------- shardings ----
+def _divides(path: str, spec, shape, mesh) -> None:
+    """Raise ``ValueError`` naming the leaf and the dimension where a
+    dimension of ``shape`` does not divide over its mesh axes in ``spec``
+    (the reference's ``device_put`` refuses the same state)."""
+    sizes = mesh_dims(mesh)
+    for dim, (n, entry) in enumerate(zip(shape, spec)):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        parts = math.prod(sizes[a] for a in axes)
+        if n % parts:
+            raise ValueError(
+                f"state_shardings: {path} dimension {dim} of size {n} does "
+                f"not divide over mesh axes {axes} ({parts} ways) of the "
+                f"mesh {sizes}")
 
 
-def make_train_step_compressed(cfg, opt_cfg, mesh, n_microbatches: int = 1,
-                               pod_axis: str = "pod"):
-    _refuse("make_train_step_compressed")
+def state_shardings(mesh, cfg: ModelConfig, rules=None) -> dict:
+    """A ``NamedSharding`` for every leaf of the state, from
+    ``state_axes``: the moments shard like the params, ``step`` is
+    replicated. As in the reference, no axis is dropped where it does not
+    divide: such a leaf raises ``ValueError`` here, before any work."""
+    def walk(axes, shapes, path):
+        if isinstance(axes, dict):
+            return {k: walk(axes[k], shapes[k], f"{path}.{k}" if path else k)
+                    for k in axes}
+        spec = shr.logical_to_spec(axes, rules, mesh)
+        _divides(path, spec, tuple(shapes.shape), mesh)
+        return shr.NamedSharding(mesh, spec)
+
+    return walk(state_axes(cfg), abstract_state(cfg), "")
 
 
-def state_shardings(mesh, cfg, rules=None):
-    _refuse("state_shardings")
+def batch_shardings(mesh, batch_tree, rules=None) -> dict:
+    """``("batch", None, ...)`` for every batch leaf, the batch dimension
+    split where it divides (``sharding.rules.named_sharding_for``)."""
+    return tree_map(lambda x: shr.named_sharding_for(
+        mesh, ("batch",) + (None,) * (len(x.shape) - 1), tuple(x.shape),
+        rules), batch_tree)
 
 
-def batch_shardings(mesh, batch_tree, rules=None):
-    _refuse("batch_shardings")
+def _placed(t, sharding, device, copy: bool):
+    """A state or batch leaf on the mesh: a DTensor as it is (a copy when
+    ``copy``), anything else placed by ``sharding`` from ``device``."""
+    if isinstance(t, DTensor):
+        return t.detach().clone().requires_grad_(t.requires_grad) \
+            if copy else t
+    return shr.place(sharding, torch.as_tensor(t, device=device))
 
 
-def jit_train_step(step_fn, mesh, cfg, batch_tree, rules=None,
+def place_state(cfg: ModelConfig, state: dict, shardings, copy: bool = False
+                ) -> dict:
+    """``state`` on the mesh of ``shardings`` (``state_shardings``' tree;
+    may be None when every leaf is a DTensor already), its params a
+    trainable ``TransformerLM``: plain leaves placed (each rank keeps a
+    copy of its block), DTensor leaves kept as they are — or copied, with
+    ``copy``."""
+    device = None if shardings is None else torch.device(
+        shardings["opt"]["step"].mesh.device_type)
+
+    def walk(tree, sh):
+        if isinstance(tree, dict):
+            return {k: walk(v, None if sh is None else sh[k])
+                    for k, v in tree.items()}
+        return _placed(tree, sh, device, copy)
+
+    params = walk(as_tree(state["params"]),
+                  None if shardings is None else shardings["params"])
+    opt = walk(state["opt"], None if shardings is None else shardings["opt"])
+    old = state["params"]
+    if isinstance(old, TransformerLM) and all(
+            a is b for (_, a), (_, b) in zip(tree_leaves(old.tree()),
+                                             tree_leaves(params))):
+        params = old
+    return trainable_state(cfg, {"params": params, "opt": opt})
+
+
+def _is_placed(state: dict) -> bool:
+    return all(isinstance(t, DTensor) for _, t in tree_leaves(
+        {"params": as_tree(state["params"]), "opt": state["opt"]}))
+
+
+def jit_train_step(step_fn, mesh, cfg: ModelConfig, batch_tree, rules=None,
                    donate: bool = True):
-    _refuse("jit_train_step")
+    """The step on ``mesh`` (a ``DeviceMesh``), the port's counterpart of
+    the reference's ``jax.jit`` with in- and out-shardings; there is no jit
+    to wrap. The returned step places a plain state by ``state_shardings``
+    (raising ``ValueError`` there on a leaf that does not divide, before
+    any work) and a plain batch by ``batch_shardings`` (``batch_tree``'s
+    shapes), each rank keeping its block; DTensor leaves that are already
+    placed stay as they are (the dry-run's divisibility-aware placements
+    on a production mesh, say). It runs ``step_fn`` under the rules on the
+    mesh, with plain tensors made inside the step taken as replicated, and
+    returns the state — its tensors updated in place, the counterpart of
+    donation; ``donate=False`` steps a copy — and the metrics as plain
+    tensors, the same on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    rules = rules or shr.current_rules()
+    bs = batch_shardings(mesh, batch_tree, rules)
+    device = torch.device(mesh.device_type)
+    shardings = functools.cache(lambda: state_shardings(mesh, cfg, rules))
+
+    def step(state: dict, batch: dict):
+        state = place_state(cfg, state, None if _is_placed(state)
+                            else shardings(), copy=not donate)
+        batch = {k: _placed(v, bs[k], device, False)
+                 for k, v in batch.items()}
+        with shr.use_rules(rules, mesh), implicit_replication():
+            state, metrics = step_fn(state, batch)
+        return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+
+    return step
+
+
+def make_train_step_compressed(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
+                               mesh, n_microbatches: int = 1,
+                               pod_axis: str = "pod"):
+    """The step whose cross-pod gradient mean has int8 on the wire, on a
+    ``DeviceMesh`` with a ``pod_axis`` (the reference's ``shard_map``
+    manual over ``pod`` only). Each pod takes the gradients of its slice
+    of the batch with the DTensor step on the other axes' sub-mesh (its
+    state's blocks and its batch rows, the same local tensors: no copy);
+    the gradients are averaged over the pods by ``compressed_psum_tree``
+    over ``pod_axis`` and the loss by an exact all-reduce; AdamW then
+    updates the blocks in place. Run it through ``jit_train_step`` on
+    ``mesh`` (the state replicated over the pods, the batch split over
+    them), which returns the metrics replicated."""
+    import torch.distributed as dist
+
+    from repro_torch.optim.compression import compressed_psum_tree
+
+    names = axis_names(mesh)
+    n_pods = mesh_dims(mesh)[pod_axis]
+    keep = [i for i, a in enumerate(names) if a != pod_axis]
+    inner = tuple(names[i] for i in keep)
+    sub = mesh[inner if len(inner) > 1 else inner[0]]
+    pod_group = mesh.get_group(pod_axis)
+
+    def local(x):
+        """``x`` (on ``mesh``) as a DTensor on ``sub`` over the same local
+        block."""
+        return DTensor.from_local(x.to_local().detach(), sub,
+                                  [x.placements[i] for i in keep],
+                                  run_check=False)
+
+    def step(state: dict, batch: dict):
+        params = TransformerLM(cfg, tree_map(local, as_tree(state["params"])),
+                               requires_grad=True)
+        opt = {"m": tree_map(local, state["opt"]["m"]),
+               "v": tree_map(local, state["opt"]["v"]),
+               "step": local(state["opt"]["step"])}
+        with shr.use_rules(shr.current_rules(), sub):
+            loss, grads = _mean_grads(cfg, params, {
+                k: local(v) for k, v in batch.items()}, n_microbatches)
+            placements = dict(tree_leaves(params.tree()))
+            grads = _as_tree({
+                path: g.redistribute(sub, placements[path].placements)
+                for path, g in tree_leaves(grads)})
+            grads = tree_map(lambda g: g / n_pods, compressed_psum_tree(
+                grads, pod_axis, mesh=mesh))
+            loss = loss.full_tensor() if isinstance(loss, DTensor) else loss
+            dist.all_reduce(loss, group=pod_group)
+            _, opt, metrics = adamw.adamw_update(params, grads, opt, opt_cfg)
+        metrics["loss"] = loss / n_pods
+        step_count = DTensor.from_local(opt["step"].to_local(), mesh,
+                                        state["opt"]["step"].placements,
+                                        run_check=False)
+        return {"params": state["params"],
+                "opt": {**state["opt"], "step": step_count}}, metrics
+
+    return step

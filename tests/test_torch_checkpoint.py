@@ -13,7 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_train_util import pair
+from torch.distributed.tensor import DTensor
+from torch_train_util import one_rank_mesh, pair
 
 from repro.checkpoint import store as jstore
 from repro.train import step as jstep
@@ -173,7 +174,24 @@ def test_module_flattens_as_its_tree():
         p for p, _ in tree_leaves(tp.tree())}
 
 
-def test_restore_with_shardings_refuses_naming_the_multi_card_row(tmp_path):
-    tstore.save(str(tmp_path), 1, _tree())
-    with pytest.raises(NotImplementedError, match="multi-card row"):
-        tstore.restore(str(tmp_path), 1, _tree(), shardings={"w": None})
+def test_formerly_refused_restore_with_shardings(tmp_path):
+    """``restore(shardings=)`` of a JAX-written training state onto a 1 x 1
+    mesh of one gloo rank: every leaf a DTensor with its sharding's
+    placements on the mesh's device, equal bit for bit to the unsharded
+    restore."""
+    jcfg, jp, tcfg, _ = pair("smollm-135m", seed=1)
+    jstore.save(str(tmp_path), 3, {"params": jp, "opt": jstep.make_state(
+        jcfg, jax.random.key(1))["opt"]}, extra={"data_step": 3})
+    template = tstep.abstract_state(tcfg)
+    plain, _ = tstore.restore(str(tmp_path), 3, template, device="cpu")
+    with one_rank_mesh(("data", "model")) as mesh:
+        sh = tstep.state_shardings(mesh, tcfg)
+        got, extra = tstore.restore(str(tmp_path), 3, template, sh)
+        flat_sh = tstore._flatten(sh, type(sh["opt"]["step"]))
+        want = tstore._flatten(plain)
+        assert extra == {"data_step": 3}
+        for k, v in tstore._flatten(got).items():
+            assert isinstance(v, DTensor) and v.device.type == "cpu", k
+            assert tuple(v.placements) == flat_sh[k].placements, k
+            assert v.dtype == want[k].dtype and torch.equal(
+                v.full_tensor(), want[k]), k

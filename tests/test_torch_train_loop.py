@@ -7,7 +7,10 @@ the gradient tolerance, at ``tests/test_train.py``'s schedule; see
 ``test_torch_train_step.py`` for why the schedule); the port's final
 checkpoint restores in the JAX package; a restart resumes exactly
 (``tests/test_train.py::test_resume_equivalence``); the launcher and the
-example print the reference's lines apart from times."""
+example print the reference's lines apart from times. On a mesh of one
+gloo rank ``train(mesh=)`` follows the reference's on its one host device,
+and the launcher's ``--mesh`` resumes; on 4 ranks in
+``test_torch_sharded_train.py``."""
 
 import dataclasses
 import importlib.util
@@ -18,22 +21,26 @@ import sys
 
 import jax
 import numpy as np
-import pytest
 import torch
-from torch_train_util import TOL, assert_trees_close, flat_jax, flat_port
+from torch_train_util import (TOL, assert_trees_close, flat_jax, flat_port,
+                              one_rank_mesh)
 
 from repro import configs as jconfigs
 from repro.checkpoint import store as jstore
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.launch import train as jlaunch
+from repro.launch.mesh import make_host_mesh
 from repro.optim.adamw import OptConfig as JOptConfig
 from repro.train import loop as jloop
 from repro.train import step as jstep
 from repro_torch import convert
+from repro_torch.checkpoint import store as tstore
 from repro_torch.data.pipeline import DataConfig as TDataConfig
 from repro_torch.launch import train as tlaunch
+from repro_torch.models.common import tree_leaves
 from repro_torch.optim.adamw import OptConfig as TOptConfig
 from repro_torch.train import loop as tloop
+from repro_torch.train import step as tstep
 
 torch.set_num_threads(1)
 
@@ -174,12 +181,52 @@ def test_example_prints_the_reference_lines(tmp_path, monkeypatch, capsys):
         [ln.replace(ja, tp_dir) for ln in want])
 
 
-@pytest.mark.parametrize("call", [
-    lambda: tloop.train(TCFG, TOptConfig(), TDataConfig(8, 2),
-                        tloop.LoopConfig(steps=1), mesh=object(),
-                        device="cpu"),
-    lambda: tlaunch.main(["--mesh", "--device", "cpu"])],
-    ids=["train-mesh", "launch-mesh"])
-def test_mesh_refuses_naming_the_multi_card_row(call):
-    with pytest.raises(NotImplementedError, match="multi-card row"):
-        call()
+def test_formerly_refused_train_on_mesh_matches_reference(tmp_path):
+    """``train(mesh=)`` on a 1 x 1 mesh of one gloo rank and the
+    reference's ``train(mesh=make_host_mesh())`` on its one host device,
+    from one step-0 state: five steps' losses within rtol 1e-4, the
+    parameters within the gradient tolerance, the final checkpoint written
+    (by rank 0) and restorable unsharded."""
+    ja, tp_dir = _shared_start(tmp_path)
+    loop = dict(steps=5, ckpt_every=100, log_every=1, n_microbatches=2)
+    jout = jloop.train(CFG, JOptConfig(**OC), JDataConfig(**DC),
+                       jloop.LoopConfig(ckpt_dir=ja, **loop),
+                       mesh=make_host_mesh(), log=lambda s: None)
+    want_params = flat_jax(jout["state"]["params"])
+    with one_rank_mesh(("data", "model")) as mesh:
+        tout = tloop.train(TCFG, TOptConfig(**OC), TDataConfig(**DC),
+                           tloop.LoopConfig(ckpt_dir=tp_dir, **loop),
+                           mesh=mesh, log=lambda s: None, device="cpu")
+        got = {k: v.detach().full_tensor().numpy() for k, v in
+               tree_leaves(tout["state"]["params"].tree())}
+    np.testing.assert_allclose([h["loss"] for h in tout["history"]],
+                               [h["loss"] for h in jout["history"]],
+                               rtol=1e-4)
+    assert_trees_close(got, want_params, TOL, "params")
+    back, extra = tstore.restore(tp_dir, 5, tstep.abstract_state(TCFG),
+                                 device="cpu")
+    assert extra == {"data_step": 5}
+    assert_trees_close(flat_port(back["params"]), got, 0.0, "restored")
+
+
+def test_formerly_refused_launch_mesh_resumes(tmp_path, capsys):
+    """``--mesh --device cpu`` in a group of this process alone: 3 steps,
+    then a relaunch to 5 resumes from the step-3 checkpoint, and its
+    losses equal the unsharded launcher's over 5 steps from the same
+    start (rtol 1e-5); each launch tears its group down."""
+    ja, tp_dir = _shared_start(tmp_path, jconfigs.reduced_config(
+        "smollm-135m"), seed=0)
+    flags = ["--seq-len", "16", "--global-batch", "4", "--ckpt-every", "3",
+             "--device", "cpu"]
+    first = tlaunch.main(["--steps", "3", "--mesh", "--ckpt-dir", tp_dir,
+                          *flags])
+    assert not torch.distributed.is_initialized()
+    capsys.readouterr()
+    second = tlaunch.main(["--steps", "5", "--mesh", "--ckpt-dir", tp_dir,
+                           *flags])
+    assert capsys.readouterr().out.splitlines()[0] == (
+        "[resume] restored step 3, data_step 3")
+    plain = tlaunch.main(["--steps", "5", "--ckpt-dir", ja, *flags])
+    np.testing.assert_allclose(
+        [h["loss"] for h in first["history"] + second["history"]],
+        [h["loss"] for h in plain["history"]], rtol=1e-5)

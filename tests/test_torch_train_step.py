@@ -4,19 +4,27 @@ package's: the microbatch grain is numerically neutral (as
 the reference's accumulation; remat and the chunked loss leave the
 gradients as they were; three whole steps of ``make_train_step`` (the
 parameters updated in place, the trainable module's per-layer views made
-anew each step) follow the reference's, loss for loss and leaf for leaf."""
+anew each step) follow the reference's, loss for loss and leaf for leaf.
+The mesh half on a mesh of one gloo rank (``jit_train_step``, the
+compressed step, the shardings) against the reference's on its one host
+device; on 4 ranks in ``test_torch_sharded_train.py``."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 from torch_train_util import (TOL, assert_trees_close, batch, family_pair,
-                              flat_jax, flat_port, pair, to_jax, to_torch)
+                              flat_jax, flat_port, one_rank_mesh, pair,
+                              spec_lists, to_jax, to_torch)
 
+from repro import configs as jconfigs
 from repro.optim import adamw as jadamw
 from repro.train import step as jstep
+from repro_torch import configs as tconfigs
+from repro_torch.checkpoint import store as tstore
 from repro_torch.models import api as tapi
 from repro_torch.models import transformer as ttfm
+from repro_torch.models.common import tree_leaves
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import step as tstep
 
@@ -136,13 +144,83 @@ def _nested(tree):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("call", [
-    lambda: tstep.make_train_step_compressed(None, None, mesh=object()),
-    lambda: tstep.state_shardings(object(), None),
-    lambda: tstep.batch_shardings(object(), {}),
-    lambda: tstep.jit_train_step(None, object(), None, {})],
-    ids=["compressed", "state_shardings", "batch_shardings",
-         "jit_train_step"])
-def test_multi_card_step_refuses_naming_the_multi_card_row(call):
-    with pytest.raises(NotImplementedError, match="multi-card row"):
-        call()
+def _compressed(jcfg, tcfg, oc, mesh, jmesh):
+    return (tstep.make_train_step_compressed(tcfg, tadamw.OptConfig(**oc),
+                                             mesh),
+            jstep.make_train_step_compressed(jcfg, jadamw.OptConfig(**oc),
+                                             jmesh))
+
+
+def _plain(jcfg, tcfg, oc, mesh, jmesh):
+    return (tstep.make_train_step(tcfg, tadamw.OptConfig(**oc), 2),
+            jstep.make_train_step(jcfg, jadamw.OptConfig(**oc), 2))
+
+
+@pytest.mark.parametrize("names,make", [
+    (("pod", "data", "model"), _compressed),
+    (("data", "model"), _plain)], ids=["compressed", "jit_train_step"])
+def test_formerly_refused_mesh_steps_match_reference(names, make):
+    """One step through ``jit_train_step`` on a 1 x 1 (x 1) mesh of one
+    gloo rank — the compressed step (int8 over a pod axis of one) and the
+    plain step in 2 microbatches — against the reference's
+    ``jit_train_step`` on a mesh of its one host device: the loss within
+    1e-5, the gradient norm within 1e-4 relative, and the parameters after
+    the step within the gradient tolerance (eps 1e-3: AdamW's first step
+    is then a smooth function of the gradient, which the int8 rounding
+    otherwise flips near zero). The port's state comes back as DTensors,
+    its metrics as plain tensors."""
+    from torch.distributed.tensor import DTensor
+
+    from repro.compat import make_auto_mesh
+    jcfg, jp, tcfg, tp = pair("smollm-135m", seed=4, requires_grad=True)
+    oc = dict(lr=1e-3, warmup_steps=4, total_steps=40, eps=1e-3)
+    b = batch(jcfg, seq_len=16, global_batch=4, seed=9)
+    jmesh = make_auto_mesh((1,) * len(names), names)
+    jstate = {"params": jp, "opt": jadamw.init_opt_state(jp)}
+    with one_rank_mesh(names) as mesh:
+        tfn, jfn = make(jcfg, tcfg, oc, mesh, jmesh)
+        jfn = jstep.jit_train_step(jfn, jmesh, jcfg, b)
+        tfn = tstep.jit_train_step(tfn, mesh, tcfg, b)
+        jstate, jm = jfn(jstate, to_jax(b))
+        tstate, tm = tfn({"params": tp, "opt": tadamw.init_opt_state(tp)},
+                         to_torch(b))
+        assert all(isinstance(v, torch.Tensor) and not isinstance(v, DTensor)
+                   for v in tm.values())
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+        assert float(tm["lr"]) == float(jm["lr"])
+        params = tstate["params"].tree()
+        assert all(isinstance(v, DTensor) for _, v in tree_leaves(params))
+        got = {k: v.detach().full_tensor().float().numpy()
+               for k, v in tree_leaves(params)}
+        assert int(tstate["opt"]["step"].full_tensor()) == 1
+    assert_trees_close(got, flat_jax(jstate["params"]), TOL, "params")
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("what", ["state_shardings", "batch_shardings"])
+def test_formerly_refused_shardings_match_reference(what, arch):
+    """Every leaf's spec on a 1 x 1 ("data", "model") mesh of one gloo
+    rank equals the reference's on its one host device (no axis of size
+    one is dropped), and each sharding names the port's mesh."""
+    from jax.sharding import NamedSharding as JNamedSharding
+
+    from repro.compat import make_auto_mesh
+    from repro_torch.sharding.rules import NamedSharding
+    jcfg = jconfigs.reduced_config(arch)
+    tcfg = tconfigs.reduced_config(arch)
+    jmesh = make_auto_mesh((1, 1), ("data", "model"))
+    b = batch(jcfg, seq_len=16, global_batch=4, seed=9)
+    with one_rank_mesh(("data", "model")) as mesh:
+        if what == "state_shardings":
+            got = tstep.state_shardings(mesh, tcfg)
+            want = jstep.state_shardings(jmesh, jcfg)
+        else:
+            got = tstep.batch_shardings(mesh, b)
+            want = jstep.batch_shardings(jmesh, b)
+        assert all(s.mesh is mesh for s in tstore._flatten(
+            got, NamedSharding).values())
+        assert spec_lists(got, NamedSharding) == spec_lists(
+            want, JNamedSharding)

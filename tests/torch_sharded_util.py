@@ -179,13 +179,15 @@ def run_family(arch: str, mesh) -> dict:
     out["train_grads"] = tree_rel(d_grads, r_grads)
 
     def train(rules):
+        # the state placed by the divisibility-aware rules (the dense twin
+        # with 3 kv heads on a 2-wide model axis); jit_train_step leaves
+        # placed leaves alone and places the batch
         st = {"params": inp.place_tree(mesh, state["params"].tree(),
                                        s_axes["params"], rules),
               "opt": inp.place_tree(mesh, state["opt"], s_axes["opt"],
                                     rules)}
-        st["params"] = TransformerLM(cfg, st["params"], requires_grad=True)
-        db = inp.place_tree(mesh, tbatch, None, rules)
-        return tstep.make_train_step(cfg, opt)(st, db)
+        return tstep.jit_train_step(tstep.make_train_step(cfg, opt), mesh,
+                                    cfg, tbatch, rules)(st, tbatch)
 
     d_state, d_metrics = sharded("train", train)
     r_state, r_metrics = tstep.make_train_step(cfg, opt)(state, tbatch)

@@ -2,6 +2,7 @@
 weights and batches in the JAX package and in the port, and leaf-by-leaf
 comparison of trees of gradients or parameters by dotted path."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -111,3 +112,24 @@ def assert_trees_close(got: dict, want: dict, tol: float, what: str = ""):
     errs = leaf_errors(got, want)
     bad = {p: e for p, e in errs.items() if e > tol}
     assert not bad, f"{what}: leaves beyond {tol} of their scale: {bad}"
+
+
+@contextlib.contextmanager
+def one_rank_mesh(names: tuple[str, ...]):
+    """A ``DeviceMesh`` of 1 x ... x 1 over a gloo group of this process
+    alone (``launch.mesh.process_group``), torn down on exit: the port's
+    mesh paths in this process, against the reference's on one host
+    device."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import mesh as lmesh
+    with lmesh.process_group("cpu"):
+        yield DeviceMesh("cpu", torch.zeros((1,) * len(names), dtype=int),
+                         mesh_dim_names=names)
+
+
+def spec_lists(shardings, leaf_type) -> dict:
+    """{path: spec as lists} of a tree of either package's shardings."""
+    from repro_torch.checkpoint import store
+    return {k: [list(e) if isinstance(e, tuple) else e for e in s.spec]
+            for k, s in store._flatten(shardings, leaf_type).items()}
