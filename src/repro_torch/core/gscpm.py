@@ -81,6 +81,7 @@ from repro_torch.obsv.search_metrics import (
     init_search_metrics,
     summarize_metrics,
 )
+from repro_torch.obsv.trace import stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -450,6 +451,10 @@ def sync_iteration(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
     values this function computes anyway — no RNG consumed, nothing fed
     back, no host read — so the tree is bit-identical either way. Without
     one, nothing extra runs.
+
+    While a profiler records, each stage runs inside its ``gscpm.<stage>``
+    range (``obsv.trace.stage``): keys, descent, propose, expand, playout,
+    backup, and metrics (before the expansion and after the backup).
     """
     game = cfg.game_obj
     W = cfg.n_workers
@@ -468,84 +473,97 @@ def sync_iteration(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
             lanes.append((path, depth, leaf, b, mv))
         return tuple(torch.stack(x) for x in zip(*lanes))
 
-    def select_group(keys_g):
-        # identical RNG schedule on both paths: per-lane (noise, move,
-        # playout) keys come from one split of the lane's iteration key
-        ks = rng.split(keys_g, 3)
-        k_noise, k_move, k_po = ks[..., 0, :], ks[..., 1, :], ks[..., 2, :]
+    def select_group(k_noise, k_move):
+        # the scalar oracle proposes per lane, inside its descent
         if cfg.descent == "scalar" and lead:
             per = [scalar_lanes(forest_member(tree, e), root_board[e],
                                 k_noise[e], k_move[e]) for e in range(lead[0])]
-            out = tuple(torch.stack(x) for x in zip(*per))
-        elif cfg.descent == "scalar":
-            out = scalar_lanes(tree, root_board, k_noise, k_move)
-        else:
-            paths, depths, leaves, boards, _ = select_batch(
-                tree, root_board, game, cp, k_noise, cfg.select_noise)
-            mvs = propose_move(tree, leaves, boards, game, k_move)
-            out = (paths, depths, leaves, boards, mvs)
-        return (*out, k_po)
+            return tuple(torch.stack(x) for x in zip(*per))
+        if cfg.descent == "scalar":
+            return scalar_lanes(tree, root_board, k_noise, k_move)
+        return select_batch(tree, root_board, game, cp, k_noise,
+                            cfg.select_noise)[:4]
 
-    keys_r = iter_keys.reshape(*lead, R, Wr, 2)
-    active_r = active.reshape(*lead, R, Wr)
+    with stage("keys"):
+        # identical RNG schedule on both paths: per-lane (noise, move,
+        # playout) keys come from one split of the lane's iteration key
+        keys_r = iter_keys.reshape(*lead, R, Wr, 2)
+        ks = [rng.split(keys_r[..., r, :, :], 3) for r in range(R)]
 
     # virtual loss only influences the NEXT selection round of this
     # iteration; with a single round (R == 1) the add+reset pair is dead
     # weight — skipping it is bit-identical (no RNG is consumed)
     outs = []
-    for r in range(R):
-        out = select_group(keys_r[..., r, :, :])
+    with stage("descent"):
+        active_r = active.reshape(*lead, R, Wr)
+        for r in range(R):
+            out = select_group(ks[r][..., 0, :], ks[r][..., 1, :])
+            if R > 1:
+                add_vloss(tree, out[0], active_r[..., r, :].to(torch.float32),
+                          cfg.virtual_loss)
+            outs.append(out)
         if R > 1:
-            add_vloss(tree, out[0], active_r[..., r, :].to(torch.float32),
-                      cfg.virtual_loss)
-        outs.append(out)
-    if R > 1:
-        reset_vloss(tree)
-
-    lane_axis = len(lead)
-    paths, depths, leaves, boards, moves, po_keys = (
-        torch.cat(x, dim=lane_axis) for x in zip(*outs))
+            reset_vloss(tree)
+    if cfg.descent != "scalar":
+        # the proposals read no virtual loss: proposing after every round's
+        # descent is bit-identical to proposing after each
+        with stage("propose"):
+            outs = [(*out, propose_move(tree, out[2], out[3], game,
+                                        k[..., 1, :]))
+                    for out, k in zip(outs, ks)]
 
     # expand_batch bumps n_nodes in place: keep the count before it
-    n_nodes_before = None if metrics is None else tree.n_nodes.clone()
-    tree, new_ids = expand_batch(tree, leaves, moves, active)
-
-    expanded = new_ids < tree.cap
-    # the new node joins the backup path
-    paths = advance_paths(paths, depths,
-                          torch.where(expanded, new_ids, tree.cap),
-                          torch.ones_like(expanded))
+    n_nodes_before = None
+    if metrics is not None:
+        with stage("metrics"):
+            n_nodes_before = tree.n_nodes.clone()
+    lane_axis = len(lead)
+    with stage("expand"):
+        paths, depths, leaves, boards, moves, po_keys = (
+            torch.cat(x, dim=lane_axis) for x in zip(*(
+                (*out, k[..., 2, :]) for out, k in zip(outs, ks))))
+        tree, new_ids = expand_batch(tree, leaves, moves, active)
+        expanded = new_ids < tree.cap
+        # the new node joins the backup path
+        paths = advance_paths(paths, depths,
+                              torch.where(expanded, new_ids, tree.cap),
+                              torch.ones_like(expanded))
 
     # place each lane's proposed move (if any) — game-agnostic given the
     # shared board convention; lanes that proposed nothing evaluate the
     # leaf position itself (terminal leaves included)
-    movers = gather_nodes(tree, tree.to_move, leaves)
-    do = moves >= 0
-    placed = game.place(boards, torch.clamp(moves, min=0), movers)
-    b2 = torch.where(do[..., None], placed, boards)
-    nxt = torch.where(do, 3 - movers, movers)
-    n = b2.shape[-1]
-    if cfg.playout == "scalar":
-        # per-lane oracle: one scalar playout after the other
-        winners = torch.stack([
-            game.playout_scalar(b, t, k) for b, t, k in zip(
-                b2.reshape(-1, n), nxt.reshape(-1), po_keys.reshape(-1, 2))])
-    else:
-        # fused leaf evaluation: ONE batched (E·W, cells) playout stage for
-        # every lane of every member (bit-identical values to the oracle)
-        winners = game.playout_batch(b2.reshape(-1, n), nxt.reshape(-1),
-                                     po_keys.reshape(-1, 2))
-    tree = backup_paths(tree, paths, winners.view(nxt.shape),
-                        active.to(torch.float32))
+    with stage("playout"):
+        movers = gather_nodes(tree, tree.to_move, leaves)
+        do = moves >= 0
+        placed = game.place(boards, torch.clamp(moves, min=0), movers)
+        b2 = torch.where(do[..., None], placed, boards)
+        nxt = torch.where(do, 3 - movers, movers)
+        n = b2.shape[-1]
+        if cfg.playout == "scalar":
+            # per-lane oracle: one scalar playout after the other
+            winners = torch.stack([
+                game.playout_scalar(b, t, k) for b, t, k in zip(
+                    b2.reshape(-1, n), nxt.reshape(-1),
+                    po_keys.reshape(-1, 2))])
+        else:
+            # fused leaf evaluation: ONE batched (E·W, cells) playout stage
+            # for every lane of every member (bit-identical values to the
+            # oracle)
+            winners = game.playout_batch(b2.reshape(-1, n), nxt.reshape(-1),
+                                         po_keys.reshape(-1, 2))
+    with stage("backup"):
+        tree = backup_paths(tree, paths, winners.view(nxt.shape),
+                            active.to(torch.float32))
     if metrics is None:
         return tree
-    # (*lead, R, Wr): each selection round's own depths — on the card the
-    # descent kernel's depths output of that round's launch
-    depths_grouped = torch.stack([out[1] for out in outs], dim=lane_axis)
-    metrics = accumulate_iteration(
-        metrics, depths_grouped=depths_grouped, active=active, leaves=leaves,
-        moves=moves, eval_boards=b2, n_nodes_before=n_nodes_before,
-        n_nodes_after=tree.n_nodes)
+    with stage("metrics"):
+        # (*lead, R, Wr): each selection round's own depths — on the card
+        # the descent kernel's depths output of that round's launch
+        depths_grouped = torch.stack([out[1] for out in outs], dim=lane_axis)
+        metrics = accumulate_iteration(
+            metrics, depths_grouped=depths_grouped, active=active,
+            leaves=leaves, moves=moves, eval_boards=b2,
+            n_nodes_before=n_nodes_before, n_nodes_after=tree.n_nodes)
     return tree, metrics
 
 
@@ -570,7 +588,8 @@ def run_chunk(tree: Tree, root_board: torch.Tensor, cfg: GSCPMConfig,
             f"{'missing' if metrics is None else 'provided'} — pass "
             "repro_torch.obsv.init_search_metrics() iff the flag is set")
     for i in range(int(m)):
-        iter_keys = rng.fold_in(task_keys, i)
+        with stage("keys"):
+            iter_keys = rng.fold_in(task_keys, i)
         if cfg.metrics:
             tree, metrics = sync_iteration(tree, root_board, cfg, cp,
                                            iter_keys, active, metrics)
@@ -599,9 +618,11 @@ def run_schedule_round(tree: Tree, board: torch.Tensor, cfg: GSCPMConfig,
     the accumulator rides along and the round returns ``(tree, metrics)``.
     """
     dev = board.device
-    task_ids = torch.as_tensor(rnd.task_ids, dtype=torch.int32, device=dev)
-    task_keys = fold_task_keys(key, task_ids)
-    active = torch.as_tensor(rnd.active, device=dev)
+    with stage("round_inputs"):
+        task_ids = torch.as_tensor(rnd.task_ids, dtype=torch.int32,
+                                   device=dev)
+        task_keys = fold_task_keys(key, task_ids)
+        active = torch.as_tensor(rnd.active, device=dev)
     return run_chunk(tree, board, cfg, task_keys, active, int(rnd.m), cp,
                      metrics)
 
@@ -660,28 +681,30 @@ def gscpm_search(board: torch.Tensor, to_move: int, cfg: GSCPMConfig,
     comparison mode, never the default.
     """
     device = torch.device("cuda") if device is None else torch.device(device)
-    board = torch.as_tensor(board).to(device=device, dtype=torch.int8)
-    key = key.to(device)
-    reused_nodes = 0
-    reused_visits = 0.0
-    if tree is None:
-        tree = init_tree(cfg.tree_cap, cfg.game_obj.n_actions, to_move,
-                         device=device)
-    else:
-        tree = Tree(*(t.to(device) for t in tree))
-        warm_tree_check(tree, to_move, cfg)
-        reused_nodes = int(tree.n_nodes) - 1   # cold trees also own the root
-        reused_visits = float(tree.visits[0])
-    metrics = None
-    if cfg.metrics:
-        metrics = init_search_metrics(tree_nodes_reused=reused_nodes,
-                                      device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    with stage("init"):
+        board = torch.as_tensor(board).to(device=device, dtype=torch.int8)
+        key = key.to(device)
+        reused_nodes = 0
+        reused_visits = 0.0
+        if tree is None:
+            tree = init_tree(cfg.tree_cap, cfg.game_obj.n_actions, to_move,
+                             device=device)
+        else:
+            tree = Tree(*(t.to(device) for t in tree))
+            warm_tree_check(tree, to_move, cfg)
+            # cold trees also own the root
+            reused_nodes = int(tree.n_nodes) - 1
+            reused_visits = float(tree.visits[0])
+        metrics = None
+        if cfg.metrics:
+            metrics = init_search_metrics(tree_nodes_reused=reused_nodes,
+                                          device=device)
+        sync()
     schedule = sched.make_schedule(
         cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler)
 
     cp = float(cfg.cp)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    sync()
     t0 = time.perf_counter()
     playouts = 0
     masked_lane_iters = 0
@@ -702,24 +725,24 @@ def gscpm_search(board: torch.Tensor, to_move: int, cfg: GSCPMConfig,
                 tracer.poll_compiles()
             playouts += int(rnd.active.sum()) * rnd.m
             masked_lane_iters += int((~rnd.active).sum()) * rnd.m
-    sync()
-    dt = time.perf_counter() - t0
-
-    stats = {
-        "time_s": dt,
-        "playouts": playouts,
-        "playouts_per_s": playouts / max(dt, 1e-9),
-        "rounds": len(schedule),
-        "grain": cfg.grain,
-        "masked_lane_fraction": masked_lane_iters
-        / max(1, playouts + masked_lane_iters),
-        "tree_nodes": int(tree.n_nodes),
-        "root_value": float(root_value(tree)),
-        "best_move": int(best_child(tree)),
-    }
-    if reused_nodes or reused_visits:
-        stats["reused_nodes"] = reused_nodes
-        stats["reused_visits"] = reused_visits
-    if cfg.metrics:
-        stats["metrics"] = summarize_metrics(metrics)
+    with stage("summary"):
+        sync()
+        dt = time.perf_counter() - t0
+        stats = {
+            "time_s": dt,
+            "playouts": playouts,
+            "playouts_per_s": playouts / max(dt, 1e-9),
+            "rounds": len(schedule),
+            "grain": cfg.grain,
+            "masked_lane_fraction": masked_lane_iters
+            / max(1, playouts + masked_lane_iters),
+            "tree_nodes": int(tree.n_nodes),
+            "root_value": float(root_value(tree)),
+            "best_move": int(best_child(tree)),
+        }
+        if reused_nodes or reused_visits:
+            stats["reused_nodes"] = reused_nodes
+            stats["reused_visits"] = reused_visits
+        if cfg.metrics:
+            stats["metrics"] = summarize_metrics(metrics)
     return tree, stats

@@ -86,6 +86,7 @@ from repro_torch.obsv.search_metrics import (
     init_search_metrics_forest,
     summarize_metrics,
 )
+from repro_torch.obsv.trace import stage
 from repro_torch.sharding.rules import (DEFAULT_RULES, NamedSharding,
                                         logical_to_spec)
 
@@ -289,13 +290,15 @@ def run_schedule_round_forest(forest: Tree, boards: torch.Tensor,
     """
     m = int(rnd.m)
     if mesh is None:
-        task_keys, active = _round_inputs(member_keys, rnd, n_real, 0)
+        with stage("round_inputs"):
+            task_keys, active = _round_inputs(member_keys, rnd, n_real, 0)
         return run_chunk_forest(forest, boards, cfg, task_keys, active, m,
                                 cp, metrics)
     inputs, first = [], 0
-    for mk in member_keys:
-        inputs.append(_round_inputs(mk, rnd, n_real, first))
-        first += mk.shape[0]
+    with stage("round_inputs"):
+        for mk in member_keys:
+            inputs.append(_round_inputs(mk, rnd, n_real, first))
+            first += mk.shape[0]
     task_keys, active = [i[0] for i in inputs], [i[1] for i in inputs]
     if cfg.metrics:
         return _sharded_chunk_metrics(forest, boards, task_keys, active, m,
@@ -535,64 +538,68 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
             "shard='require' but the ensemble mesh has fewer than two "
             "entries — pass device=[...] with two or more (repeat a device "
             "for virtual shards; README 'Scaling out')")
-    boards = torch.as_tensor(boards).to(device=device, dtype=torch.int8)
-    if boards.dim() == 1:
-        if n_trees is None and forest is not None:
-            n_trees = forest_size(forest)   # warm restart implies E
-        boards = boards[None, :].expand(n_trees or 1, -1)
-    boards = boards.contiguous()
-    E = boards.shape[0]
-    if n_trees is not None and n_trees != E:
-        raise ValueError(f"n_trees={n_trees} != boards.shape[0]={E}")
-    n_moves = cfg.game_obj.n_actions  # the Game seam's move-id space
-    key = key.to(device)
+    with stage("init"):
+        boards = torch.as_tensor(boards).to(device=device, dtype=torch.int8)
+        if boards.dim() == 1:
+            if n_trees is None and forest is not None:
+                n_trees = forest_size(forest)   # warm restart implies E
+            boards = boards[None, :].expand(n_trees or 1, -1)
+        boards = boards.contiguous()
+        E = boards.shape[0]
+        if n_trees is not None and n_trees != E:
+            raise ValueError(f"n_trees={n_trees} != boards.shape[0]={E}")
+        n_moves = cfg.game_obj.n_actions  # the Game seam's move-id space
+        key = key.to(device)
 
-    reused_nodes = 0
-    if forest is None:
-        forest = init_forest(E, cfg.tree_cap, n_moves, to_move, device=device)
-    else:
-        if forest_size(forest) != E:
-            raise ValueError(
-                f"warm forest has {forest_size(forest)} members, "
-                f"boards batch has {E}")
-        forest = Tree(*(t.to(device) for t in forest))
-        tm = int(torch.as_tensor(to_move).reshape(-1)[0])
-        warm_tree_check(forest, tm, cfg)
-        reused_nodes = int(forest.n_nodes.sum()) - E
-    padded_members = 0
-    Ep = E
-    if mesh is not None:
-        _, Ep = ensemble_sharding(E, mesh)
-        padded_members = Ep - E
-        forest, boards = pad_forest_members(forest, boards, Ep, cfg, to_move)
-    # folded over the GLOBAL member ids before any split: a member's stream
-    # never depends on the shard that hosts it
-    member_keys = fold_task_keys(
-        key, torch.arange(Ep, dtype=torch.int32, device=device))
-    schedule = sched.make_schedule(
-        cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler)
-    state = init_sync_state(Ep, n_moves, device) if merge_every > 0 else None
-    metrics = None
-    if cfg.metrics:
-        metrics = init_search_metrics_forest(Ep, device)
-        if reused_nodes:
-            # per-member retention gauge (summed in the ensemble summary;
-            # pad members report 0 — their forests are fresh inits)
-            metrics = metrics._replace(
-                tree_nodes_reused=(forest.n_nodes - 1).to(torch.int32))
-    devices = [device]
-    if mesh is not None:
-        devices = mesh.device_list()
-        forest = split_members(forest, devices)
-        boards = split_members(boards, devices)
-        member_keys = split_members(member_keys, devices)
-        if state is not None:
-            state = split_members(state, devices)
-        if metrics is not None:
-            metrics = split_members(metrics, devices)
+        reused_nodes = 0
+        if forest is None:
+            forest = init_forest(E, cfg.tree_cap, n_moves, to_move,
+                                 device=device)
+        else:
+            if forest_size(forest) != E:
+                raise ValueError(
+                    f"warm forest has {forest_size(forest)} members, "
+                    f"boards batch has {E}")
+            forest = Tree(*(t.to(device) for t in forest))
+            tm = int(torch.as_tensor(to_move).reshape(-1)[0])
+            warm_tree_check(forest, tm, cfg)
+            reused_nodes = int(forest.n_nodes.sum()) - E
+        padded_members = 0
+        Ep = E
+        if mesh is not None:
+            _, Ep = ensemble_sharding(E, mesh)
+            padded_members = Ep - E
+            forest, boards = pad_forest_members(forest, boards, Ep, cfg,
+                                                to_move)
+        # folded over the GLOBAL member ids before any split: a member's
+        # stream never depends on the shard that hosts it
+        member_keys = fold_task_keys(
+            key, torch.arange(Ep, dtype=torch.int32, device=device))
+        schedule = sched.make_schedule(
+            cfg.n_playouts, cfg.n_tasks, cfg.n_workers, cfg.scheduler)
+        state = (init_sync_state(Ep, n_moves, device) if merge_every > 0
+                 else None)
+        metrics = None
+        if cfg.metrics:
+            metrics = init_search_metrics_forest(Ep, device)
+            if reused_nodes:
+                # per-member retention gauge (summed in the ensemble summary;
+                # pad members report 0 — their forests are fresh inits)
+                metrics = metrics._replace(
+                    tree_nodes_reused=(forest.n_nodes - 1).to(torch.int32))
+        devices = [device]
+        if mesh is not None:
+            devices = mesh.device_list()
+            forest = split_members(forest, devices)
+            boards = split_members(boards, devices)
+            member_keys = split_members(member_keys, devices)
+            if state is not None:
+                state = split_members(state, devices)
+            if metrics is not None:
+                metrics = split_members(metrics, devices)
 
+        synchronize(devices)
     cp = float(cfg.cp)
-    synchronize(devices)
     t0 = time.perf_counter()
     playouts_per_tree = 0
     n_syncs = 0
@@ -615,44 +622,46 @@ def gscpm_search_batch(boards: torch.Tensor, to_move, cfg: GSCPMConfig,
             playouts_per_tree += int(rnd.active.sum()) * rnd.m
             if merge_every > 0 and ((r + 1) % merge_every == 0
                                     or r == len(schedule) - 1):
-                forest, state = sync_root_stats(forest, state, n_moves)
+                with stage("merge"):
+                    forest, state = sync_root_stats(forest, state, n_moves)
                 n_syncs += 1
-    synchronize(devices)
-    dt = time.perf_counter() - t0
-
-    if mesh is not None:
-        forest = concat_members(forest, device)
-        if metrics is not None:
-            metrics = concat_members(metrics, device)
-    if padded_members:
-        forest = Tree(*(x[:E] for x in forest))
-        if metrics is not None:
-            metrics = type(metrics)(*(x[:E] for x in metrics))
-    playouts = E * playouts_per_tree
-    summary = forest_summary(forest, n_moves)
-    stats = {
-        "time_s": dt,
-        "n_trees": E,
-        "playouts": playouts,
-        "playouts_per_tree": playouts_per_tree,
-        "playouts_per_s": playouts / max(dt, 1e-9),
-        "rounds": len(schedule),
-        "grain": cfg.grain,
-        "n_syncs": n_syncs,
-        "sharded": mesh is not None,
-        "n_devices": 1 if mesh is None else mesh.size,
-        "mesh_shape": None if mesh is None else mesh_dims(mesh),
-        "padded_members": padded_members,
-        "tree_nodes": forest.n_nodes.cpu().tolist(),
-        "member_best_moves": summary["member_best_moves"].cpu().tolist(),
-        "member_root_values": summary["member_root_values"].cpu().tolist(),
-        "best_move_sum": int(summary["best_move_sum"]),
-        "best_move_vote": int(summary["best_move_vote"]),
-    }
-    if reused_nodes:
-        stats["reused_nodes"] = reused_nodes
-    if cfg.metrics:
-        stats["metrics"] = summarize_metrics(metrics)
+    with stage("summary"):
+        synchronize(devices)
+        dt = time.perf_counter() - t0
+        if mesh is not None:
+            forest = concat_members(forest, device)
+            if metrics is not None:
+                metrics = concat_members(metrics, device)
+        if padded_members:
+            forest = Tree(*(x[:E] for x in forest))
+            if metrics is not None:
+                metrics = type(metrics)(*(x[:E] for x in metrics))
+        playouts = E * playouts_per_tree
+        summary = forest_summary(forest, n_moves)
+        stats = {
+            "time_s": dt,
+            "n_trees": E,
+            "playouts": playouts,
+            "playouts_per_tree": playouts_per_tree,
+            "playouts_per_s": playouts / max(dt, 1e-9),
+            "rounds": len(schedule),
+            "grain": cfg.grain,
+            "n_syncs": n_syncs,
+            "sharded": mesh is not None,
+            "n_devices": 1 if mesh is None else mesh.size,
+            "mesh_shape": None if mesh is None else mesh_dims(mesh),
+            "padded_members": padded_members,
+            "tree_nodes": forest.n_nodes.cpu().tolist(),
+            "member_best_moves": summary["member_best_moves"].cpu().tolist(),
+            "member_root_values":
+                summary["member_root_values"].cpu().tolist(),
+            "best_move_sum": int(summary["best_move_sum"]),
+            "best_move_vote": int(summary["best_move_vote"]),
+        }
+        if reused_nodes:
+            stats["reused_nodes"] = reused_nodes
+        if cfg.metrics:
+            stats["metrics"] = summarize_metrics(metrics)
     return forest, stats
 
 

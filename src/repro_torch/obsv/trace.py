@@ -29,6 +29,11 @@ reads ``kernels._build.builds``, the process's build counter, and on each
 ``poll()`` reports how far it grew. ``poll_compiles`` emits one
 ``jit_compile`` instant per watch that grew — the name the JAX package
 uses, so ``obsv.profile``'s rule that excludes a tainted span is the same.
+
+``stage(name)`` marks a stage of the search for ``torch.profiler``: a host
+range ``gscpm.<name>`` on the profiler's clock while a session records, to
+which the profiler ties every kernel launched inside it; with no session,
+one check of the profiler's state.
 """
 
 from __future__ import annotations
@@ -38,7 +43,27 @@ import json
 import time
 from typing import Callable
 
+import torch
+
 from repro_torch.kernels import _build
+
+_NO_STAGE = contextlib.nullcontext()
+
+
+def stage(name: str):
+    """The profiler range ``gscpm.<name>`` while a profiler records, else a
+    shared no-op context. The search's stage ranges are the outermost ranges
+    it opens (``core.gscpm``, ``core.root_parallel``) and follow each other
+    on one thread, so a trace's top-level host events name the stage each
+    device operation was launched in, and their order names the round and
+    the iteration (``round_inputs`` opens a round, ``run_chunk``'s ``keys``
+    an iteration)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_STAGE
+    # not ``torch.profiler.record_function``: a user annotation also gets a
+    # shadow on the device's timeline, which a reader of device events
+    # would take for an operation covering the stage's idle gaps
+    return torch._C._profiler._RecordFunctionFast("gscpm." + name)
 
 
 def kernel_builds() -> int:

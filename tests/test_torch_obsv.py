@@ -8,7 +8,10 @@ JAX ones on seeded random inputs (masked lanes, a forest's members); a
 search with metrics on is bit-identical to the same search with metrics
 off. Host plane: the trace recorder's spans on a traced port search match
 the JAX package's, ``CompileWatch`` counts kernel-library builds, and the
-registry and the dispatch fit give the JAX package's numbers.
+registry and the dispatch fit give the JAX package's numbers. Under
+``torch.profiler`` the search's ``gscpm.<stage>`` ranges follow the
+schedule, hold every op of the call, and change no result; with no
+profiler they build nothing.
 """
 
 import dataclasses
@@ -412,6 +415,104 @@ def test_compile_watch_counts_kernel_builds():
     tr.poll_compiles()
     tr.poll_compiles()
     assert tr.compile_counts() == {"probe": 2}
+
+
+# ----------------------------------------------------------- stage ranges ----
+ITERATION = ("keys", "keys", "descent", "propose", "expand", "playout",
+             "backup")
+
+
+def _stage_search(forest, game, metrics=False, profiled=True):
+    """A small search (3 rounds of 2 iterations; a 2-member forest merged
+    every other round) and its profiler events, or None unprofiled."""
+    size = 5 if game == "hex" else 7
+    cfg = tg.GSCPMConfig(**kw_for(game, size, metrics=metrics, n_workers=4,
+                                  n_tasks=12, n_playouts=24))
+    board = torch.zeros(size * size, dtype=torch.int8)
+    key = rng.key(5, "cpu")
+
+    def search():
+        if forest:
+            return trp.gscpm_search_batch(board, 1, cfg, key, n_trees=2,
+                                          merge_every=2, device="cpu")
+        return tg.gscpm_search(board, 1, cfg, key, device="cpu")
+
+    if not profiled:
+        return search(), None
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = search()
+    return out, prof.events()
+
+
+def _top(ev):
+    while ev.cpu_parent is not None:
+        ev = ev.cpu_parent
+    return ev
+
+
+STAGE_CASES = [(f, g) for f in (False, True) for g in ("hex", "gomoku")]
+STAGE_IDS = [f"{'forest' if f else 'tree'}-{g}" for f, g in STAGE_CASES]
+
+
+@pytest.mark.parametrize("metrics", [False, True], ids=["plain", "counters"])
+@pytest.mark.parametrize("forest,game", STAGE_CASES, ids=STAGE_IDS)
+def test_stage_ranges_follow_the_schedule(forest, game, metrics):
+    """The call's outermost ranges, in order: ``init``, per round
+    ``round_inputs`` and per sync iteration two ``keys`` (``run_chunk``'s
+    fold and ``sync_iteration``'s split) then each stage once, ``metrics``
+    around the node count and the counters only with the counters on, a
+    ``merge`` after every other round of the forest, ``summary``."""
+    _, events = _stage_search(forest, game, metrics)
+    got = [e.name for e in sorted(events, key=lambda e: e.time_range.start)
+           if e.cpu_parent is None and e.name.startswith("gscpm.")]
+    it = list(ITERATION)
+    if metrics:
+        it.insert(it.index("expand"), "metrics")
+        it.append("metrics")
+    want = ["init"]
+    for r in range(3):
+        want += ["round_inputs"] + 2 * it
+        if forest and r in (1, 2):
+            want.append("merge")
+    want.append("summary")
+    assert got == ["gscpm." + n for n in want]
+
+
+@pytest.mark.parametrize("forest,game", STAGE_CASES, ids=STAGE_IDS)
+def test_every_op_of_the_call_runs_inside_one_stage(forest, game):
+    """Every ``aten::`` op of the search has a ``gscpm.*`` range as its
+    outermost ancestor, and no stage range sits inside another."""
+    _, events = _stage_search(forest, game)
+    ops = [e for e in events if e.name.startswith("aten::")]
+    assert ops
+    assert {_top(e).name for e in ops} <= {"gscpm." + n for n in (
+        "init", "round_inputs", "merge", "summary", *ITERATION)}
+    assert all(e.cpu_parent is None for e in events
+               if e.name.startswith("gscpm."))
+
+
+@pytest.mark.parametrize("forest,game", STAGE_CASES, ids=STAGE_IDS)
+def test_search_bit_identical_under_the_profiler(forest, game):
+    (t_on, s_on), _ = _stage_search(forest, game)
+    (t_off, s_off), _ = _stage_search(forest, game, profiled=False)
+    assert parity.differing_fields(t_on, t_off) == []
+    drop = {"time_s", "playouts_per_s"}
+    assert ({k: v for k, v in s_on.items() if k not in drop}
+            == {k: v for k, v in s_off.items() if k not in drop})
+
+
+@pytest.mark.parametrize("forest", [False, True], ids=["tree", "forest"])
+def test_stage_builds_no_range_without_a_profiler(forest):
+    """With no profiler recording, ``stage`` hands out one shared no-op
+    context and never builds a profiler range."""
+    from repro_torch.obsv.trace import stage
+    boom = mock.Mock(side_effect=AssertionError("built a range"))
+    with mock.patch.object(torch._C._profiler, "_RecordFunctionFast", boom), \
+            mock.patch.object(torch.profiler, "record_function", boom):
+        _stage_search(forest, "hex", metrics=True, profiled=False)
+        assert stage("keys") is stage("summary")
+    boom.assert_not_called()
 
 
 # ---------------------------------------------------------------- registry ----
