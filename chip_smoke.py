@@ -9,7 +9,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (printing ``ptxas``'s registers, shared memory and spill bytes
 for each), holds each against its plain PyTorch version on the card — the
 Hex path's ``select_descent`` (a whole selection round in one launch) and
-``hex_playout`` (a whole playout in one launch), the one-tile
+``hex_playout`` (a whole playout in one launch), every game path's
+``propose_move`` (the move proposal in one launch), the one-tile
 ``uct_select`` and ``hex_winner``, both bodies of ``flash_attention``, the
 bf16 tensor-core one and the CUDA-core one, and ``rmsnorm`` — and drives
 the port's paths:
@@ -196,10 +197,10 @@ FULL = dict(board_size=11, n_workers=256, n_tasks=1024, tree_cap=1 << 18,
 # run (`--playouts 65536`) for when the time limit is short
 PAPER_PLAYOUTS = 1_048_576
 SHORT_PLAYOUTS = 65_536
-# CUDA kernels one profiled Hex sync iteration may launch: the descent and
-# the playout are one launch each, the rest (threefry, proposal, expansion,
-# backup) ~500 eager ops; the same bound holds a forest's iteration (one
-# pass for all members)
+# CUDA kernels one profiled Hex sync iteration may launch: the descent, the
+# proposal and the playout are one launch each, the rest (threefry keys,
+# expansion, backup) ~300 eager ops; the same bound holds a forest's
+# iteration (one pass for all members)
 MAX_KERNELS_PER_ITERATION = 800
 
 # the paper's grain-size experiment (Fig 7) at the card's width: 65,536
@@ -996,6 +997,119 @@ def check_hex_playout(torch):
     return {"boards": boards_checked, "mismatches": 0, "max_abs_err": 0}
 
 
+def propose_inputs(torch, tree, board, game, W, seed):
+    """Leaves, legal masks and move keys of one selection round on `tree`
+    (a forest: (E, W) lanes): the descent kernel's leaves and boards, the
+    game's legal mask, and the move keys as the search passes them, a view
+    of a (..., 3, 2) key split read through its lane stride."""
+    from repro_torch import rng
+    from repro_torch.kernels import select_descent as sd
+    E = tree.parent.shape[0] if tree.parent.dim() == 2 else None
+    lead = (W,) if E is None else (E, W)
+    keys = rng.split(rng.split(rng.key(seed, "cuda"), math.prod(lead)), 3)
+    keys = keys.view(*lead, 3, 2)
+    _, _, leaves, boards, _ = sd.select_descent(
+        tree, board, keys[..., 0, :].contiguous(), 1.0, 1e-3,
+        game.max_moves + 1)
+    return leaves, game.legal_mask(boards), keys[..., 1, :]
+
+
+def check_propose_move(torch, cases):
+    """The proposal kernel against its plain version on the card, bit for
+    bit: each case's leaves of one selection round (single trees and
+    forests, Hex and Gomoku), a () leaf, terminal and fully expanded leaves
+    (every answer -1), and the benchmark's lane count on one tree."""
+    from repro_torch import rng
+    from repro_torch.core.gscpm import GSCPMConfig, gscpm_search
+    from repro_torch.kernels import propose_move as pm, ref
+    per_case, lanes = {}, 0
+
+    def held(name, tree, leaf, legal, key, none=False):
+        nonlocal lanes
+        before = pm.propose_move.launches
+        got = pm.propose_move(tree, leaf, legal, key)
+        check(pm.propose_move.launches == before + 1,
+              f"propose_move ({name}): not one launch")
+        want = ref.propose_move(tree, leaf, legal, key)
+        check(got.dtype == want.dtype == torch.int32
+              and got.shape == want.shape == leaf.shape,
+              f"propose_move ({name}): output {got.dtype} {tuple(got.shape)}"
+              f" != plain {want.dtype} {tuple(want.shape)}")
+        bad = int((got != want).sum())
+        check(bad == 0, f"propose_move ({name}): {bad} of {leaf.numel()} "
+                        "lanes differ from the plain version")
+        check(not none or bool((got == -1).all()),
+              f"propose_move ({name}): a lane proposed a move")
+        lanes += leaf.numel()
+        per_case[name] = {"lanes": leaf.numel(),
+                          "no_move": int((got == -1).sum()),
+                          "distinct_moves": int(got.unique().numel())}
+        return got
+
+    for ci, (name, tree, board, game, W) in enumerate(cases):
+        if "held" in name or "virtual loss" in name:
+            continue                     # the same leaves as another case
+        held(name, tree,
+             *propose_inputs(torch, tree, board, game, W, 300 + ci))
+    # Gomoku 15x15 at the search's width: 225 cells, 8 a thread
+    gcfg = GSCPMConfig(**{**GOMOKU, "tree_cap": 1 << 14}, n_playouts=8192)
+    ggame = gcfg.game_obj
+    gboard = ggame.init_board("cuda")
+    gtree, _ = gscpm_search(gboard, 1, gcfg, rng.key(31, "cuda"))
+    leaf, legal, key = propose_inputs(torch, gtree, gboard, ggame, 256, 32)
+    held("gomoku 15x15 search", gtree, leaf, legal, key)
+    # one lane: the () leaf of the scalar oracles and core/mcts.py
+    held("() leaf, gomoku 15x15", gtree, leaf[3], legal[3], key[3])
+    # every lane at a fully expanded root, or at a terminal board
+    name, tree, board, game, W = next(c for c in cases
+                                      if c[0] == "search 11x11")
+    check(int(tree.n_children[0]) == game.n_cells,
+          "propose_move: the 11x11 root is not fully expanded")
+    n = game.n_cells
+    full = torch.where(torch.arange(n, device="cuda") % 2 == 0, 1, 2)
+    boards = torch.stack([board] * 8 + [full.to(torch.int8)] * 8)
+    keys = rng.split(rng.key(41, "cuda"), 16)
+    held("fully expanded root and filled boards, hex 11x11", tree,
+         torch.zeros(16, dtype=torch.int32, device="cuda"),
+         game.legal_mask(boards), keys, none=True)
+    won = gboard.clone()
+    won[112:117] = 1                              # a five in the middle row
+    wkeys = rng.split(rng.key(42, "cuda"), 4)
+    held("won gomoku boards", gtree, torch.zeros(4, dtype=torch.int32,
+                                                 device="cuda"),
+         ggame.legal_mask(won.expand(4, -1).contiguous()), wkeys, none=True)
+    # the benchmark's lane count (1,024 x 256) on one 11x11 tree
+    leaf, legal, key = propose_inputs(torch, tree, board, game, W, 43)
+    reps = (1024 * 256) // W
+    big_key = rng.split(rng.key(44, "cuda"), reps * W * 3).view(-1, 3, 2)
+    held("262,144 lanes on one 11x11 tree", tree, leaf.repeat(reps),
+         legal.repeat(reps, 1), big_key[:, 1, :])
+    return {"lanes": lanes, "mismatches": 0, "cases": per_case,
+            "max_abs_err": 0}
+
+
+def propose_work(torch, tree, leaf, legal):
+    """(bytes, operations) of one proposal: per lane the legal mask, the
+    leaf id, its key, its child count and the move out, each child's id
+    and move read once; a uniform for every untried legal cell, and a
+    mask test, a compare and a select per cell."""
+    from repro_torch.core.tree import gather_nodes, member_rows, rows_view
+    N, n = leaf.numel(), legal.shape[-1]
+    rows = member_rows(tree, leaf)
+    kids = rows_view(tree, tree.n_children)[rows]
+    slots = rows_view(tree, tree.children)[rows]
+    valid = (torch.arange(tree.max_children, device=leaf.device)
+             < kids[..., None])
+    moves = torch.where(valid, gather_nodes(
+        tree, tree.move, torch.where(valid, slots, tree.cap)), n)
+    tried = torch.zeros((*leaf.shape, n + 1), dtype=torch.bool,
+                        device=leaf.device)
+    tried.scatter_(-1, moves.long(), True)
+    draws = int((legal & ~tried[..., :n]).sum())
+    n_bytes = N * (n + 4 + 16 + 4 + 4) + 8 * int(kids.long().sum())
+    return n_bytes, draws * UNIFORM_OPS + 3 * N * n
+
+
 def descent_work(torch, tree, paths, depths, n_root_empty, n, max_depth):
     """(bytes, operations) one descent needs for these outputs: each tree
     entry read once (per scored node its counters and its children's ids and
@@ -1030,9 +1144,10 @@ def playout_work(torch, boards, rounds):
 
 
 def phase_kernels(torch):
-    """Hold the game-search kernels (the descent and the playout, the
-    one-tile uct_select and hex_winner) against their plain versions on the
-    card, then time them at the shapes the main path gives them."""
+    """Hold the game-search kernels (the descent, the playout and the
+    proposal, the one-tile uct_select and hex_winner) against their plain
+    versions on the card, then time them at the shapes the main path gives
+    them."""
     from repro_torch.core import hex as hx
     from repro_torch.core.hex import doubling_rounds
     from repro_torch.kernels import hex_winner as hw, ref, uct_select as us
@@ -1113,6 +1228,32 @@ def phase_kernels(torch):
     hp_bytes, hp_ops = playout_work(torch, leaves, doubling_rounds(C))
     hp_bound, hp_by = bound_ms(hp_bytes, hp_ops, OPS_PER_S)
 
+    # the proposal at the main path's shape: one selection round's 256
+    # leaves on the same 11x11 tree; then the benchmark's Hex lane count
+    # (1,024 x 256), those leaves repeated on that tree
+    from repro_torch.kernels import propose_move as pm
+    proposal = check_propose_move(torch, cases)
+    pleaf, plegal, pkey = propose_inputs(torch, t11, b11, game, W, 45)
+    propose_call = lambda: pm.propose_move(t11, pleaf, plegal, pkey)
+    pm_ms = time_ms(propose_call)
+    pm_graph = graph_ms(propose_call)
+    pm_plain = time_ms(lambda: ref.propose_move(t11, pleaf, plegal, pkey),
+                       iters=20, warmup=3)
+    pm_bytes, pm_ops = propose_work(torch, t11, pleaf, plegal)
+    pm_bound, pm_by = bound_ms(pm_bytes, pm_ops, OPS_PER_S)
+    reps = 1024
+    bleaf, blegal = pleaf.repeat(reps), plegal.repeat(reps, 1)
+    bkey = rng.split(rng.key(46, "cuda"), reps * W * 3).view(-1, 3, 2)
+    bkey = bkey[:, 1, :]
+    big_call = lambda: pm.propose_move(t11, bleaf, blegal, bkey)
+    pm_big_ms = time_ms(big_call, iters=50)
+    pm_big_graph = graph_ms(big_call, launches=10)
+    pm_big_plain = time_ms(
+        lambda: ref.propose_move(t11, bleaf, blegal, bkey), iters=3,
+        warmup=1, reps=3)
+    pm_big_bytes, pm_big_ops = propose_work(torch, t11, bleaf, blegal)
+    pm_big_bound, pm_big_by = bound_ms(pm_big_bytes, pm_big_ops, OPS_PER_S)
+
     records = [
         {"name": "select_descent", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/uct_select.cu",
@@ -1136,6 +1277,20 @@ def phase_kernels(torch):
          "timed_on": {"mean_empty_cells": float((leaves == 0).sum(dim=1)
                                                 .float().mean()),
                       "bytes": hp_bytes, "operations": hp_ops}},
+        {"name": "propose_move", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/propose_move.cu",
+         "replaces": "no TPU kernel: src/repro/core/gscpm.py's propose_move "
+                     "is jnp and jax.random.uniform, fused by XLA",
+         "shape": [W, C], "checked": proposal, "max_abs_err": 0,
+         "ms": pm_ms, "in_graph_ms": pm_graph, "plain_ms": pm_plain,
+         "bound_ms": pm_bound, "bound_by": pm_by, "library_ms": None,
+         "timed_on": {"tree": "11x11, 65,536-playout search",
+                      "bytes": pm_bytes, "operations": pm_ops},
+         "bench_lanes": {"shape": [reps * W, C], "ms": pm_big_ms,
+                         "in_graph_ms": pm_big_graph,
+                         "plain_ms": pm_big_plain, "bound_ms": pm_big_bound,
+                         "bound_by": pm_big_by, "bytes": pm_big_bytes,
+                         "operations": pm_big_ops}},
         {"name": "uct_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/uct_select.cu",
          "replaces": "src/repro/kernels/uct_select.py:36",
@@ -1154,7 +1309,7 @@ def phase_kernels(torch):
          "library_ms": None, "flood_fill_ms": flood_ms},
     ]
     emit("kernels_checked", uct_select=uct, hex_winner=hexw,
-         select_descent=descent, hex_playout=playout,
+         select_descent=descent, hex_playout=playout, propose_move=proposal,
          note="every bound is far below one launch's latency: at these "
               "shapes the kernels are launch-bound")
     return records
@@ -1245,8 +1400,10 @@ def depth_stats(torch, seen) -> dict:
 
 def search_counters():
     from repro_torch.kernels import hex_playout as hp, hex_winner as hw
+    from repro_torch.kernels import propose_move as pm
     from repro_torch.kernels import select_descent as sd, uct_select as us
     return {"select_descent": sd.select_descent, "hex_playout": hp.hex_playout,
+            "propose_move": pm.propose_move,
             "uct_select": us.uct_select, "hex_winner": hw.hex_winner}
 
 
@@ -1308,6 +1465,9 @@ def phase_search(torch, n_playouts: int):
     check(launches["select_descent"] == rounds,
           f"select_descent launches {launches['select_descent']} != selection "
           f"rounds {rounds}")
+    check(launches["propose_move"] == rounds,
+          f"propose_move launches {launches['propose_move']} != "
+          f"selection rounds {rounds}")
     check(launches["hex_playout"] == iterations,
           f"hex_playout launches {launches['hex_playout']} != sync iterations "
           f"{iterations}")
@@ -1385,10 +1545,16 @@ def phase_sequential(torch, n_playouts: int):
     from repro_torch import rng
     from repro_torch.core.mcts import uct_search
     from repro_torch.core.tree import check_invariants
+    from repro_torch.kernels import propose_move as pm
     board = torch.zeros(121, dtype=torch.int8, device="cuda")
+    before = pm.propose_move.launches
     tree, st = uct_search(board, 1, n_playouts, rng.key(0, "cuda"),
                           board_size=11, tree_cap=1 << 14)
     check(float(tree.visits[0]) == n_playouts, "sequential: root visits")
+    check(pm.propose_move.launches - before == n_playouts,
+          f"sequential: propose_move launches "
+          f"{pm.propose_move.launches - before} != playouts {n_playouts} "
+          "(one () leaf an iteration)")
     check_invariants(tree)
     emit("sequential", config="uct_search, hex 11x11, one lane",
          playouts=n_playouts, playouts_per_s=st["playouts_per_s"],
@@ -1438,6 +1604,9 @@ def phase_paper_sweep(torch, seq_rate: float):
     check(launches["select_descent"] == rounds,
           f"paper_sweep: select_descent launches "
           f"{launches['select_descent']} != selection rounds {rounds}")
+    check(launches["propose_move"] == rounds,
+          f"paper_sweep: propose_move launches {launches['propose_move']} != "
+          f"selection rounds {rounds}")
     check(launches["hex_playout"] == iterations,
           f"paper_sweep: hex_playout launches {launches['hex_playout']} != "
           f"sync iterations {iterations}")
@@ -1665,6 +1834,9 @@ def phase_hex_forest(torch):
     check(launches["select_descent"] == rounds,
           f"forest: select_descent launches {launches['select_descent']} != "
           f"selection rounds {rounds} (one launch a round for all members)")
+    check(launches["propose_move"] == rounds,
+          f"forest: propose_move launches {launches['propose_move']} != "
+          f"selection rounds {rounds}")
     check(launches["hex_playout"] == sum(iters),
           f"forest: hex_playout launches {launches['hex_playout']} != sync "
           f"iterations {sum(iters)}")
@@ -1730,11 +1902,11 @@ def phase_hex_forest(torch):
 # --------------------------------------------------------- sharded forest ----
 def sharded_launches_checked(counters, n_shards: int, iterations: int,
                              what: str) -> dict:
-    """The search counters after a sharded run: ``select_descent`` and
-    ``hex_playout`` once a shard a sync iteration, the one-tile kernels
-    never."""
+    """The search counters after a sharded run: ``select_descent``,
+    ``propose_move`` and ``hex_playout`` once a shard a sync iteration, the
+    one-tile kernels never."""
     launches = {name: c.launches for name, c in counters.items()}
-    for name in ("select_descent", "hex_playout"):
+    for name in ("select_descent", "propose_move", "hex_playout"):
         check(launches[name] == n_shards * iterations,
               f"{what}: {name} launches {launches[name]} != {n_shards} "
               f"shards x {iterations} sync iterations")
@@ -1826,7 +1998,7 @@ def phase_hex_forest_sharded(torch):
             "launches": launches,
             "launches_per_iteration_per_shard": {
                 k: launches[k] / (iters * n)
-                for k in ("select_descent", "hex_playout")}}
+                for k in ("select_descent", "propose_move", "hex_playout")}}
         if device != ["cuda", "cuda"]:
             del f_on
             continue
@@ -2047,6 +2219,9 @@ def phase_gomoku(torch):
     rounds = sum(iters) * GOMOKU["vl_rounds"]
     check(launches["select_descent"] == rounds,
           f"gomoku: select_descent launches {launches['select_descent']} != "
+          f"selection rounds {rounds}")
+    check(launches["propose_move"] == rounds,
+          f"gomoku: propose_move launches {launches['propose_move']} != "
           f"selection rounds {rounds}")
     check(launches["hex_playout"] == 0 and launches["uct_select"] == 0
           and launches["hex_winner"] == 0,
@@ -2387,6 +2562,9 @@ def phase_serve_games(torch):
     hex_iters = sum(iters[r.rid] for r in reqs if r.game == "hex")
     check(launches["select_descent"] == rounds,
           f"serve: select_descent launches {launches['select_descent']} != "
+          f"selection rounds {rounds}")
+    check(launches["propose_move"] == rounds,
+          f"serve: propose_move launches {launches['propose_move']} != "
           f"selection rounds {rounds}")
     check(launches["hex_playout"] == hex_iters,
           f"serve: hex_playout launches {launches['hex_playout']} != Hex "
@@ -5743,10 +5921,11 @@ def main(argv=None) -> int:
                                train_bodies, roofline_bodies)
     for r in records:
         # each kernel's count on the paths it serves, each path's counters
-        # zeroed just before it ran: select_descent and hex_playout on the
-        # Hex search, the paper's sweep, the Hex forest (one device, then
-        # sharded: once a shard a sync iteration) and game serving;
-        # select_descent on Gomoku (its playout has no kernel); uct_select
+        # zeroed just before it ran: select_descent, propose_move and
+        # hex_playout on the Hex search, the paper's sweep, the Hex forest
+        # (one device, then sharded: once a shard a sync iteration) and
+        # game serving; select_descent and propose_move on Gomoku (its
+        # playout has no kernel); uct_select
         # (the LM descent's tile), flash_attention and rmsnorm on the LM
         # search, the batched search, the LM engines, the families, the
         # vlm and encdec models, training and the roofline cells (flash and

@@ -11,8 +11,10 @@ shared tree. Here:
   via a batched descent — ``kernels.ops.select_descent``: on the card one
   kernel launch per round in which every lane walks to its leaf, on the
   CPU the lockstep level loop with one ``kernels.ops.uct_select`` (W, C)
-  tile per level — then dedup-expands the proposed (leaf, move) pairs with
-  prefix-sum slot allocation (the paper's atomic child index), evaluates W
+  tile per level — proposes one untried move a lane
+  (``kernels.ops.propose_move``: on the card one launch for every lane,
+  given the game's legal mask), then dedup-expands the (leaf, move) pairs
+  with prefix-sum slot allocation (the paper's atomic child index), evaluates W
   playouts as ONE fused (W, cells) stage through the game's batched
   playout primitive (``game.playout_batch`` — for Hex one launch of
   ``kernels.ops.hex_playout`` on the card: fill and connectivity together)
@@ -70,7 +72,6 @@ from repro_torch.core.tree import (
     forest_member,
     gather_nodes,
     init_tree,
-    member_rows,
     reset_vloss,
     root_value,
     rows_view,
@@ -290,27 +291,14 @@ def propose_move(tree: Tree, leaf: torch.Tensor, board: torch.Tensor,
     Batched over leading axes: ``leaf`` (...), ``board`` (..., n_cells),
     ``key`` (..., 2); on a forest the leading axes start with the member
     axis and ``leaf`` is member-local. No host read.
+
+    The game's legal mask is computed here, eagerly (Hex: one compare;
+    Gomoku: the five scan); the rest is ``kernels.ops.propose_move``: on
+    the card ONE launch of the proposal kernel for every lane (the draw,
+    the tried-move mask and the argmax in registers), on the CPU the eager
+    plain version.
     """
-    n_cells = game.n_cells
-    C = tree.max_children
-    cap = tree.cap
-    dev = board.device
-    legal = game.legal_mask(board)
-    rows = member_rows(tree, leaf)
-    slots = rows_view(tree, tree.children)[rows]                  # (..., C)
-    valid = (torch.arange(C, dtype=torch.int32, device=dev)
-             < rows_view(tree, tree.n_children)[rows][..., None])
-    tried_moves = torch.where(
-        valid, gather_nodes(tree, tree.move, torch.where(valid, slots, cap)),
-        n_cells)
-    tried = torch.zeros((*legal.shape[:-1], n_cells + 1), dtype=torch.bool,
-                        device=dev)
-    tried.scatter_(-1, tried_moves.long(), True)
-    untried = legal & ~tried[..., :n_cells]
-    # argmax of iid uniforms over the untried set IS a uniform choice
-    u = rng.uniform(key, n_cells)
-    mv = torch.argmax(torch.where(untried, u, -1.0), dim=-1).to(torch.int32)
-    return torch.where(untried.any(dim=-1), mv, NO_NODE)
+    return ops.propose_move(tree, leaf, game.legal_mask(board), key)
 
 
 # -------------------------------------------------------- dedup expansion ----

@@ -67,6 +67,9 @@ ARGS = {
     "repro_select_descent": "9Pff6i6P",
     # boards, to_move, keys, W, size, rounds, out, filled (0: none), stream
     "repro_hex_playout": "3P3i3P",
+    # children, n_children, move, leaves, legal, keys, the keys' lane
+    # stride, N, E, rows, C, n, out, stream
+    "repro_propose_move": "6Pq5i2P",
     # q, k, v, o, B, H, Hkv, S, D, scale, causal, dtype, then the (batch,
     # head, seq) element strides of q, k, v and o, stream; the CUDA-core
     # body and the tensor-core body take the same struct

@@ -38,6 +38,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hex_playout as _hp
 from repro_torch.kernels import hex_winner as _hw
+from repro_torch.kernels import propose_move as _pm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import select_descent as _sd
@@ -92,6 +93,22 @@ def select_descent(tree, root_board, game, cp, noise_keys, noise_scale: float):
                                   noise_scale, game.max_moves + 1)
     return _ref.select_descent(tree, root_board, game, cp, noise_keys,
                                noise_scale)
+
+
+def propose_move(tree, leaf, legal, key):
+    """Per lane, a uniformly random legal move that the lane's leaf has no
+    child for yet, or -1 — the move proposal's dispatch point.
+
+    ``leaf`` (...) int32 member-local leaves (the member axis first on a
+    forest), ``legal`` (..., n) the game's bool legal mask of their boards,
+    ``key`` (..., 2) int64 move keys; returns (...) int32. On the card ONE
+    launch for every lane, the keys read through their stride; otherwise
+    the eager threefry draw, tried-move mask and argmax
+    (``kernels.ref.propose_move``).
+    """
+    if legal.is_cuda and not _force_plain:
+        return _pm.propose_move(tree, leaf, legal, key)
+    return _ref.propose_move(tree, leaf, legal, key)
 
 
 def hex_playout(boards, to_move, keys, size: int):

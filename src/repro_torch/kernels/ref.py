@@ -105,3 +105,36 @@ def select_descent(tree, root_board: torch.Tensor, game, cp,
     with ops.plain_versions():
         return select_levels(tree, root_board, game, cp, noise_keys,
                              noise_scale)
+
+
+def propose_move(tree, leaf: torch.Tensor, legal: torch.Tensor,
+                 key: torch.Tensor) -> torch.Tensor:
+    """A uniformly random legal move that ``leaf`` has no child for yet, -1
+    (``NO_NODE``) if there is none: ``core.gscpm.propose_move`` given the
+    game's legal mask.
+
+    Batched over leading axes: ``leaf`` (...) member-local ids, ``legal``
+    (..., n) bool, ``key`` (..., 2); on a forest the leading axes start
+    with the member axis. The argmax of iid uniforms over the untried
+    legal cells is a uniform choice; ties go to the first index."""
+    from repro_torch import rng
+    from repro_torch.core.tree import (NO_NODE, gather_nodes, member_rows,
+                                       rows_view)
+    n_cells = legal.shape[-1]
+    C = tree.max_children
+    cap = tree.cap
+    dev = legal.device
+    rows = member_rows(tree, leaf)
+    slots = rows_view(tree, tree.children)[rows]                  # (..., C)
+    valid = (torch.arange(C, dtype=torch.int32, device=dev)
+             < rows_view(tree, tree.n_children)[rows][..., None])
+    tried_moves = torch.where(
+        valid, gather_nodes(tree, tree.move, torch.where(valid, slots, cap)),
+        n_cells)
+    tried = torch.zeros((*legal.shape[:-1], n_cells + 1), dtype=torch.bool,
+                        device=dev)
+    tried.scatter_(-1, tried_moves.long(), True)
+    untried = legal & ~tried[..., :n_cells]
+    u = rng.uniform(key, n_cells)
+    mv = torch.argmax(torch.where(untried, u, -1.0), dim=-1).to(torch.int32)
+    return torch.where(untried.any(dim=-1), mv, NO_NODE)

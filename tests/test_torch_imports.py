@@ -166,7 +166,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
 def test_cuda_sources_ship_with_the_package():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "uct_select.cu", "hex_winner.cu", "flash_attention.cu", "rmsnorm.cu"}
+        "uct_select.cu", "hex_winner.cu", "flash_attention.cu", "rmsnorm.cu",
+        "propose_move.cu"}
     for p in csrc.glob("*.cu"):
         assert 'extern "C"' in p.read_text()
         assert "torch/extension.h" not in p.read_text()

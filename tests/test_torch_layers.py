@@ -139,6 +139,8 @@ LAUNCH_ARGS = {
     "repro_select_descent": (*(P,) * 9, 1.0, 1e-3, 122, 8, 32, 121, 121,
                              1 << 18, *(P,) * 6),
     "repro_hex_playout": (P, P, P, 256, 11, 9, P, 0, P),
+    "repro_propose_move": (*(P,) * 6, 6, 1 << 18, 1024, 16385, 121, 121, P,
+                           P),
     "repro_flash_attention": (P, P, P, P, 64, 9, 3, 128, 64, 0.125, 1, 0,
                               *range(12), P),
     "repro_flash_attention_tc": (P, P, P, P, 64, 9, 3, 128, 64, 0.125, 1, 1,
@@ -150,6 +152,7 @@ LAUNCH_ARGS = {
 # card against <entry>_args_bytes())
 C_STRUCT_BYTES = {"repro_uct_select": 88, "repro_hex_winner": 40,
                   "repro_select_descent": 152, "repro_hex_playout": 64,
+                  "repro_propose_move": 96,
                   "repro_flash_attention": 168, "repro_flash_attention_tc": 168,
                   "repro_rmsnorm": 56}
 
